@@ -6,25 +6,40 @@
 Four phases, in order; any failure exits non-zero:
 
 1. build   — compiles every CUDA source of the port with nvcc for sm_90a
-             and prints the build seconds and the card's name and power
-             limit;
-2. kernels — holds each kernel bit for bit against its plain PyTorch
-             version on the card: `lru_sets` and `prime_probe` at the
-             shapes of tests/test_kernels.py, at the main path's shapes,
-             and against the engine's batched lanes on a single-level
-             geometry; the engine at all four entry points, under lru and
-             random replacement, inclusive and non-inclusive hierarchies,
-             on the skylake_sp geometry and the paper's Table 1 geometry;
-3. main    — runs `run_cachex("skylake_sp")` on the card with the launch
-             counters at 0: the report must equal
+             (one nvcc each, in parallel) and prints the build seconds and
+             the card's name and power limit;
+2. kernels — holds each kernel against its plain PyTorch version on the
+             card: `lru_sets` and `prime_probe` (bit for bit) at the shapes
+             of tests/test_kernels.py, at the main path's shapes, and
+             against the engine's batched lanes on a single-level geometry;
+             the engine (bit for bit) at all four entry points, under lru
+             and random replacement, inclusive and non-inclusive
+             hierarchies, on the skylake_sp and the paper's Table 1
+             geometries; `flash_attention` against `attention_ref` and
+             `ssd_scan` against its plain version and the model's
+             `ssd_chunked_ref` (within stated tolerances) at the shapes of
+             tests/test_kernels.py, a ragged head-dim-80 case and the
+             zamba2-2.7b / mamba2-2.7b prefill shapes;
+3. main    — two paths, each with the launch counters set to 0 just
+             before it and read just after:
+             (i) `run_cachex("skylake_sp")`: the report must equal
              tests/data/torch_golden_run_cachex_skylake_sp.json, the engine
              kernel must have launched once per engine call (361) and the
-             plain engine never; then drives the two LRU kernels through
-             their own entry points (`simulate_rows`, `probe_verdicts`) at
-             the main path's shapes, counters reset before and read after;
+             plain engine never; then the two LRU kernels through their own
+             entry points (`simulate_rows`, `probe_verdicts`) at the main
+             path's shapes;
+             (ii) serving zamba2-2.7b at full width and depth (54 layers,
+             d_model 2560, f32 weights from a seeded torch.Generator on the
+             card): `lm.prefill` of 2 x 2048 tokens in f32 and in bf16,
+             each with 9 `flash_attention` and 54 `ssd_scan` launches and
+             no plain call, held against `impl="ref"`; then `ServeEngine`
+             answers 6 requests of 256-token prompts (two waves of 4 slots,
+             8 new tokens each) in f32, its first tokens held against the
+             kernel prefill's argmax, and again in bf16;
 4. times   — times each kernel with CUDA events at the main path's shapes
-             beside its plain version and its bound, and prints one
-             `{"kernels": [...]}` line.
+             beside its plain version, its bound and (for attention) the
+             PyTorch library call, and prints one `{"kernels": [...]}`
+             line.
 
 The line before the last is `nvidia-smi`'s name and power limit of the
 card; the last line is `{"ok": true, "device": {...}}`.  Without a CUDA
@@ -46,10 +61,25 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 GOLDEN = ROOT / "tests" / "data" / "torch_golden_run_cachex_skylake_sp.json"
 MAIN_PATH_ENGINE_CALLS = 361      # 308 access_streams_batched + 53 access_stream
-# H100 SXM published peaks: HBM bytes/s, and
-# the 32-bit rate outside the tensor cores, used for the integer compares.
+# H100 SXM published peaks: HBM bytes/s, the 32-bit rate outside the tensor
+# cores (integer compares, f32 FMAs), and the dense bf16 tensor-core rate.
 HBM_BYTES_PER_S = 3.35e12
 ALU_OPS_PER_S = 67e12
+BF16_FLOPS_PER_S = 989e12
+
+# Kernel vs plain version, float kernels: tests/test_kernels.py:15's
+# tolerances (f32 2e-5, bf16 2e-2).  Both sides compute in full f32 (no
+# TF32) and differ only in the order of their sums; bf16 outputs may round
+# one ulp (2^-8 relative) apart.
+FA_TOL = {"float32": dict(rtol=2e-5, atol=2e-5),
+          "bfloat16": dict(rtol=2e-2, atol=2e-2)}
+SSD_TOL = dict(rtol=2e-5, atol=2e-5)
+# At the full prefill shapes each y sums up to 128 x 64 products and each
+# state carries 16 chunks of them, so the two orders drift further apart:
+# 1e-4 (about 1700 f32 ulps at 1).
+SSD_TOL_FULL = dict(rtol=1e-4, atol=1e-4)
+# zamba2-2.7b's attention at the prefill shape: (B, Sq, Sk, Hq, Hkv, D)
+ZAMBA_ATTN = (2, 2048, 2048, 32, 32, 80)
 
 SOURCES = {
     "cachesim_engine": ("src/repro_torch/csrc/cachesim_engine.cu",
@@ -58,6 +88,10 @@ SOURCES = {
                  "src/repro/kernels/cachesim_step/kernel.py:44"),
     "prime_probe": ("src/repro_torch/csrc/cache_probe.cu",
                     "src/repro/kernels/cache_probe/kernel.py:80"),
+    "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention/kernel.py:80"),
+    "ssd_scan": ("src/repro_torch/csrc/ssd_scan.cu",
+                 "src/repro/kernels/ssd_scan/kernel.py:87"),
 }
 
 
@@ -76,6 +110,7 @@ class Smoke:
         self.dev = torch.device("cuda")
         self._cycles_per_ms = None
         self.err = {k: 0 for k in SOURCES}   # max |kernel - plain| per kernel
+        self.err_by = {}                      # the same per (kernel, tag)
         self.checks = {k: 0 for k in SOURCES}
 
     # -- helpers -------------------------------------------------------------
@@ -99,6 +134,31 @@ class Smoke:
             raise AssertionError(f"{kernel} {what}: {bad} of {got.size} "
                                  f"values differ from the plain version "
                                  f"(max abs err {err})")
+
+    def close(self, kernel: str, what: str, got, want, rtol: float,
+              atol: float, tag: str = "") -> float:
+        """Float results: ``|got - want| <= atol + rtol * |want|``
+        everywhere and both finite; records the max abs error (also per
+        ``tag``, e.g. the dtype)."""
+        torch = self.torch
+        got, want = got.float(), want.float()
+        if got.shape != want.shape:
+            raise AssertionError(f"{kernel} {what}: shape {tuple(got.shape)}"
+                                 f" != {tuple(want.shape)}")
+        if not (torch.isfinite(got).all() and torch.isfinite(want).all()):
+            raise AssertionError(f"{kernel} {what}: non-finite values")
+        diff = (got - want).abs()
+        err = float(diff.max()) if diff.numel() else 0.0
+        self.err[kernel] = max(self.err[kernel], err)
+        by = self.err_by.setdefault(kernel, {})
+        by[tag] = max(by.get(tag, 0.0), err)
+        self.checks[kernel] += 1
+        bad = int((diff > atol + rtol * want.abs()).sum())
+        if bad:
+            raise AssertionError(f"{kernel} {what}: {bad} of {diff.numel()}"
+                                 f" values beyond rtol {rtol} atol {atol} "
+                                 f"(max abs err {err:.3g})")
+        return err
 
     def sync(self):
         self.torch.cuda.synchronize()
@@ -444,6 +504,95 @@ class Smoke:
                                  self.t(mt), self.t(salts), commit=False)
         self.agree("cachesim_engine", f"{tag} batched_multi lat", lk, lp)
 
+    # -- phase 2d: the LM kernels -------------------------------------------------
+    def randn(self, shape, seed: int, dtype=None, scale: float = 1.0):
+        """Seeded normal values made on the card (torch.Generator)."""
+        torch = self.torch
+        g = torch.Generator(device=self.dev).manual_seed(seed)
+        x = torch.randn(shape, generator=g, device=self.dev) * scale
+        return x.to(dtype or torch.float32)
+
+    def check_flash_attention(self):
+        from repro_torch.kernels.flash_attention import kernel, ops, ref
+        torch = self.torch
+        cases = [  # (B, Sq, Sk, Hq, Hkv, D, causal)
+            (1, 128, 128, 2, 2, 64, True),    # tests/test_kernels.py sweep
+            (2, 256, 256, 4, 2, 64, True),
+            (1, 256, 256, 4, 1, 128, True),
+            (2, 128, 128, 2, 2, 128, False),
+            (1, 384, 384, 6, 2, 64, True),
+            (1, 200, 200, 4, 2, 80, True),    # ragged S, zamba2's head dim
+            (2, 200, 200, 4, 4, 80, False),
+            (*ZAMBA_ATTN, True)]              # the zamba2 prefill shape
+        for i, (B, Sq, Sk, Hq, Hkv, D, causal) in enumerate(cases):
+            for dtype in (torch.float32, torch.bfloat16):
+                q = self.randn((B, Hq, Sq, D), 3 * i, dtype)
+                k = self.randn((B, Hkv, Sk, D), 3 * i + 1, dtype)
+                v = self.randn((B, Hkv, Sk, D), 3 * i + 2, dtype)
+                name = str(dtype)[6:]
+                tag = name + (" zamba2 shape" if i == len(cases) - 1 else "")
+                what = (f"({B},{Hq}/{Hkv},{Sq}x{Sk},{D}) causal={causal} "
+                        f"{name}")
+                self.close("flash_attention", what,
+                           kernel.flash_attention_bhsd(q, k, v, causal=causal),
+                           ref.attention_ref(q, k, v, causal),
+                           **FA_TOL[name], tag=tag)
+                # the model layout, through strided views
+                out = ops.flash_attention(q.transpose(1, 2),
+                                          k.transpose(1, 2),
+                                          v.transpose(1, 2), causal)
+                self.close("flash_attention", what + " (B,S,H,D)",
+                           out.transpose(1, 2),
+                           ref.attention_ref(q, k, v, causal),
+                           **FA_TOL[name], tag=tag)
+
+    def check_ssd_scan(self):
+        from repro_torch.kernels.ssd_scan import kernel, ops, ref
+        from repro_torch.models import mamba2
+        torch = self.torch
+        cases = [  # (b, S, h, p, n, chunk, tolerance)
+            (1, 128, 4, 32, 16, 32, SSD_TOL),     # tests/test_kernels.py
+            (2, 256, 8, 64, 32, 64, SSD_TOL),
+            (1, 256, 8, 64, 128, 128, SSD_TOL),
+            (2, 64, 2, 32, 16, 64, SSD_TOL),
+            (2, 2048, 80, 64, 64, 128, SSD_TOL_FULL),   # zamba2-2.7b
+            (2, 2048, 80, 64, 128, 128, SSD_TOL_FULL)]  # mamba2-2.7b
+        for i, (b, S, h, p, n, chunk, tol) in enumerate(cases):
+            x = self.randn((b, S, h, p), 10 * i)
+            dt = self.randn((b, S, h), 10 * i + 1, scale=0.5)
+            A = -torch.exp(self.randn((h,), 10 * i + 2, scale=0.3))
+            Bm = self.randn((b, S, n), 10 * i + 3, scale=0.3)
+            Cm = self.randn((b, S, n), 10 * i + 4, scale=0.3)
+            D = self.randn((h,), 10 * i + 5)
+            what = f"(b={b}, S={S}, h={h}, p={p}, n={n}, chunk={chunk})"
+            tag = "float32" + (" full shape" if S == 2048 else "")
+            y, st = ops.ssd_scan(x, dt, A, Bm, Cm, D, chunk=chunk)
+            y_r, st_r = mamba2.ssd_chunked_ref(x, dt, A, Bm, Cm, D, chunk)
+            self.close("ssd_scan", what + " y vs ssd_chunked_ref", y, y_r,
+                       **tol, tag=tag)
+            self.close("ssd_scan", what + " state vs ssd_chunked_ref", st,
+                       st_r, **tol, tag=tag)
+            # the kernel's own function against its plain version
+            nc = S // chunk
+            dtv = torch.nn.functional.softplus(dt)
+            grid = (x.reshape(b, nc, chunk, h, p).permute(0, 3, 1, 2, 4),
+                    dtv.reshape(b, nc, chunk, h).permute(0, 3, 1, 2),
+                    (dtv * A).reshape(b, nc, chunk, h).permute(0, 3, 1, 2),
+                    Bm.reshape(b, nc, chunk, n), Cm.reshape(b, nc, chunk, n))
+            grid = [g.contiguous() for g in grid]
+            for name, a, r in zip(("y", "state"),
+                                  kernel.ssd_scan_grid(*grid),
+                                  ref.ssd_scan_grid_ref(*grid)):
+                self.close("ssd_scan", f"{what} grid {name}", a, r, **tol,
+                           tag=tag)
+            if i < 4:   # bf16 inputs: cast to f32 before the kernel
+                xb, Bb, Cb = (t.to(torch.bfloat16) for t in (x, Bm, Cm))
+                dtb = dt.to(torch.bfloat16)
+                y, _ = ops.ssd_scan(xb, dtb, A, Bb, Cb, D, chunk=chunk)
+                y_r, _ = mamba2.ssd_chunked_ref(xb, dtb, A, Bb, Cb, D, chunk)
+                self.close("ssd_scan", what + " bf16 y", y, y_r,
+                           **FA_TOL["bfloat16"], tag="bfloat16 inputs")
+
 
 def bound(nbytes: float, ops: float):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -489,6 +638,361 @@ def engine_bytes(geom, l2_rows: int, llc_rows: int, steps: int, lanes: int,
     return rows + steps * (4 + 4) + lanes * (4 + 1) + 12 + 8
 
 
+# -- the LM serving path (zamba2-2.7b at full width and depth) ----------------------
+
+SERVE_ARCH = "zamba2_2p7b"
+PREFILL_B, PREFILL_S = 2, 2048
+SERVE_REQUESTS, SERVE_PROMPT, SERVE_NEW, SERVE_SLOTS = 6, 256, 8, 4
+# launches of one zamba2-2.7b prefill: 54 // 6 = 9 shared attention blocks,
+# 54 Mamba2 layers
+PREFILL_LAUNCHES = {"flash_attention": 9, "ssd_scan": 54}
+# Logits, kernel prefill vs `impl="ref"` prefill on the card.  f32: two
+# implementations of attention and of the SSD scan whose sums differ in
+# order (about 1e-6 relative each); 63 residual blocks carry that into
+# logits of magnitude about 5, so 2e-3 leaves a margin of 100x and still
+# catches a wrong mask or decay (those move logits by 0.1 or more).  bf16:
+# the kernels must add no more error than bf16 compute itself makes on
+# this input, so the bound is max |ref prefill in bf16 - kernel prefill in
+# f32|, measured in the same run (every matmul and block output there
+# rounds to 8 significant bits; the kernel and the ref path differ only
+# where one attention or SSD output rounds one ulp apart).
+PREFILL_TOL_F32 = 2e-3
+# Logits after the last prompt token, teacher-forced decode (recurrent SSD
+# step, attention over the cache) vs the kernel prefill, f32: the same
+# function computed two ways, as above.
+DECODE_TOL = 2e-3
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def _timed_kernels(events):
+    """Patch the LM kernel wrappers seen by their `ops` modules so each
+    launch is bracketed by CUDA events (appended to ``events[name]``);
+    returns a function that undoes the patch."""
+    import repro_torch.kernels.flash_attention.ops as fa_ops
+    import repro_torch.kernels.ssd_scan.ops as ssd_ops
+    import torch
+    saved = (fa_ops.flash_attention_bhsd, ssd_ops.ssd_scan_grid)
+
+    def timed(name, fn):
+        def call(*a, **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            res = fn(*a, **kw)
+            end.record()
+            events.setdefault(name, []).append((start, end))
+            return res
+        return call
+
+    fa_ops.flash_attention_bhsd = timed("flash_attention", saved[0])
+    ssd_ops.ssd_scan_grid = timed("ssd_scan", saved[1])
+
+    def undo():
+        fa_ops.flash_attention_bhsd, ssd_ops.ssd_scan_grid = saved
+    return undo
+
+
+def profile_decode(smoke, cfg, params, prompts, max_len, step_s,
+                   steps: int = 4):
+    """Device work of a few f32 decode steps of the engine's shape, from
+    torch.profiler: kernels launched and device-busy time per step, beside
+    the engine's own wall per step (``step_s``)."""
+    torch = smoke.torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import lm
+    caches = lm.init_caches(cfg, SERVE_SLOTS, max_len, torch.float32,
+                            device=smoke.dev)
+    toks = torch.as_tensor(prompts[:SERVE_SLOTS, :1], device=smoke.dev)
+    _, caches = lm.decode_step(cfg, params, caches, toks, 0, torch.float32)
+    smoke.sync()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for pos in range(1, steps + 1):
+            _, caches = lm.decode_step(cfg, params, caches, toks, pos,
+                                       torch.float32)
+        smoke.sync()
+    busy_us, kernels = 0.0, 0
+    for e in prof.key_averages():
+        # the kernels themselves (a CPU op's device time repeats theirs)
+        if str(e.device_type).endswith("CUDA"):
+            busy_us += e.self_device_time_total
+            kernels += e.count
+    out = {"steps": steps, "kernels_per_step": kernels / steps,
+           "device_busy_ms_per_step": busy_us / 1e3 / steps,
+           "engine_wall_ms_per_step": step_s * 1e3}
+    out["device_busy_share"] = (out["device_busy_ms_per_step"]
+                                / out["engine_wall_ms_per_step"])
+    print(f"serve: torch.profiler over {steps} f32 decode steps: "
+          f"{out['kernels_per_step']:.0f} kernels and "
+          f"{out['device_busy_ms_per_step']:.2f} ms of device time a step, "
+          f"against {out['engine_wall_ms_per_step']:.1f} ms of engine wall "
+          f"a step (device busy {100 * out['device_busy_share']:.1f}%"
+          + ("" if kernels else "; the profiler saw no device activity")
+          + ")")
+    return out
+
+
+def serve_main_path(smoke, card):
+    """Phase 3 (ii): prefill and serve zamba2-2.7b at full width/depth."""
+    torch = smoke.torch
+    from repro_torch import _build
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import Request, ServeEngine
+    cfg = get_config(SERVE_ARCH)
+    t0 = time.perf_counter()
+    params = lm.init_params(
+        cfg, torch.Generator(device=smoke.dev).manual_seed(0),
+        device=smoke.dev)
+    smoke.sync()
+    res = {"config": cfg.name, "n_layers": cfg.n_layers,
+           "d_model": cfg.d_model,
+           "n_params": sum(t.numel() for t in _leaves(params)),
+           "init_s": time.perf_counter() - t0, "card": card}
+    print(f"serve: {cfg.name} at full width and depth ({cfg.n_layers} "
+          f"layers, d_model {cfg.d_model}, {res['n_params']:,} f32 "
+          f"parameters) made on the card in {res['init_s']:.1f} s")
+    rng = np.random.default_rng(0)
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab, (
+        PREFILL_B, PREFILL_S)).astype(np.int32), device=smoke.dev)
+    batch = {"tokens": tokens}
+    f32_logits = None
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype)[6:]
+        _build.reset_counters()
+        t0 = time.perf_counter()
+        lk = lm.prefill(cfg, params, batch, dtype, "kernel",
+                        device=smoke.dev)
+        smoke.sync()
+        wall = time.perf_counter() - t0
+        launches, plain = dict(_build.LAUNCHES), dict(_build.PLAIN_CALLS)
+        if launches != PREFILL_LAUNCHES or plain:
+            raise AssertionError(f"prefill {name}: launches {launches}, "
+                                 f"plain calls {plain}; expected "
+                                 f"{PREFILL_LAUNCHES} and none")
+        t0 = time.perf_counter()
+        lr = lm.prefill(cfg, params, batch, dtype, "ref",
+                        device=smoke.dev)
+        smoke.sync()
+        wall_ref = time.perf_counter() - t0
+        want = (PREFILL_B, 1, cfg.vocab_padded)
+        if tuple(lk.shape) != want or not bool(torch.isfinite(lk).all()):
+            raise AssertionError(f"prefill {name}: logits {tuple(lk.shape)}"
+                                 f", finite {bool(torch.isfinite(lk).all())}")
+        err = float((lk - lr).abs().max())
+        if f32_logits is None:
+            f32_logits, tol = lk, PREFILL_TOL_F32
+        else:
+            tol = float((lr - f32_logits).abs().max())
+        if err > tol:
+            raise AssertionError(f"prefill {name}: kernel vs ref max abs "
+                                 f"logit diff {err:.3g} > {tol:.3g}")
+        # where the time goes: the same prefill again, with CUDA events
+        # around the whole call and around each kernel launch
+        events = {}
+        undo = _timed_kernels(events)
+        try:
+            span = (torch.cuda.Event(enable_timing=True),
+                    torch.cuda.Event(enable_timing=True))
+            t0 = time.perf_counter()
+            span[0].record()
+            lm.prefill(cfg, params, batch, dtype, "kernel",
+                        device=smoke.dev)
+            span[1].record()
+            smoke.sync()
+            warm = time.perf_counter() - t0
+        finally:
+            undo()
+        kern = {k: sum(a.elapsed_time(b) for a, b in v)
+                for k, v in events.items()}
+        span_ms = span[0].elapsed_time(span[1])
+        res[f"prefill_{name}"] = {
+            "launches": launches, "plain_calls": plain,
+            "logits_max_abs": float(lk.abs().max()),
+            "max_abs_diff_vs_ref": err, "tol": tol,
+            "wall_s": wall, "wall_ref_s": wall_ref, "warm_wall_s": warm,
+            "events_span_ms": span_ms, "kernel_event_ms": kern,
+            "other_ms": span_ms - sum(kern.values())}
+        print(f"serve: prefill {PREFILL_B}x{PREFILL_S} {name}: launches "
+              f"{launches}, plain calls {plain}; kernel vs ref max |logit "
+              f"diff| {err:.3g} (tol {tol:.3g}, logits up to "
+              f"{float(lk.abs().max()):.2f}); wall {wall:.3f} s (first), "
+              f"{warm:.3f} s (again, with events), ref {wall_ref:.3f} s; "
+              f"event span {span_ms:.1f} ms of which flash_attention "
+              f"{kern.get('flash_attention', 0):.1f} ms, ssd_scan "
+              f"{kern.get('ssd_scan', 0):.1f} ms on {card}")
+
+    # the engine: 6 requests of 256-token prompts, two waves of 4 slots
+    prompts = rng.integers(0, cfg.vocab, (SERVE_REQUESTS, SERVE_PROMPT)
+                           ).astype(np.int32)
+    _build.reset_counters()
+    pre = lm.prefill(cfg, params, {"tokens": prompts}, torch.float32,
+                     "kernel", device=smoke.dev)[:, 0]
+    smoke.sync()
+    if dict(_build.LAUNCHES) != PREFILL_LAUNCHES or _build.PLAIN_CALLS:
+        raise AssertionError(f"prompt prefill launches "
+                             f"{dict(_build.LAUNCHES)}")
+    top2 = pre.topk(2, dim=-1).values
+    margin = (top2[:, 0] - top2[:, 1]).cpu().numpy()
+    pre_arg = pre.argmax(dim=-1).cpu().numpy()
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype)[6:]
+        eng = ServeEngine(cfg, params, batch_slots=SERVE_SLOTS,
+                          max_len=SERVE_PROMPT + SERVE_NEW + 8, dtype=dtype,
+                          device=smoke.dev)
+        decode, first, steps = eng._decode, [], [0]
+        finite = []
+
+        def capture(caches, toks, pos, decode=decode, first=first,
+                    steps=steps, finite=finite):
+            lg, caches = decode(caches, toks, pos)
+            steps[0] += 1
+            finite.append(torch.isfinite(lg).all())
+            if pos == SERVE_PROMPT - 1:
+                first.append(lg[:, -1].float().clone())
+            return lg, caches
+
+        eng._decode = capture
+        for rid in range(SERVE_REQUESTS):
+            eng.submit(Request(rid=rid, prompt=prompts[rid],
+                               max_new=SERVE_NEW))
+        _build.reset_counters()
+        t0 = time.perf_counter()
+        done = {r.rid: r.out for r in eng.run_until_drained()}
+        smoke.sync()
+        wall = time.perf_counter() - t0
+        if sorted(done) != list(range(SERVE_REQUESTS)) or any(
+                len(v) != SERVE_NEW for v in done.values()):
+            raise AssertionError(f"serve {name}: tokens {done}")
+        if not bool(torch.stack(finite).all()):
+            raise AssertionError(f"serve {name}: non-finite logits")
+        dec = torch.cat([first[0][:SERVE_SLOTS],
+                         first[1][:SERVE_REQUESTS - SERVE_SLOTS]])
+        diff = float((dec - pre).abs().max())
+        agree = [int(done[r][0] == pre_arg[r]) for r in range(SERVE_REQUESTS)]
+        entry = {"wall_s": wall, "decode_steps": steps[0],
+                 "generated_tokens": SERVE_REQUESTS * SERVE_NEW,
+                 "generated_tok_per_s": SERVE_REQUESTS * SERVE_NEW / wall,
+                 "slot_steps_per_s": steps[0] * SERVE_SLOTS / wall,
+                 "steps_per_s": steps[0] / wall,
+                 "max_abs_diff_first_logits_vs_prefill": diff,
+                 "first_token_equals_prefill_argmax": agree,
+                 "prefill_top2_margin": margin.tolist(),
+                 "launches": dict(_build.LAUNCHES),
+                 "plain_calls": dict(_build.PLAIN_CALLS)}
+        if dtype == torch.float32:
+            if diff > DECODE_TOL:
+                raise AssertionError(f"serve f32: decode vs prefill max "
+                                     f"|logit diff| {diff:.3g} > "
+                                     f"{DECODE_TOL}")
+            for r in range(SERVE_REQUESTS):
+                if margin[r] > 2 * DECODE_TOL and not agree[r]:
+                    raise AssertionError(
+                        f"serve f32: request {r} first token {done[r][0]} "
+                        f"!= prefill argmax {pre_arg[r]} (margin "
+                        f"{margin[r]:.3g})")
+        res[f"serve_{name}"] = entry
+        if dtype == torch.float32:
+            entry["profile"] = profile_decode(smoke, cfg, params, prompts,
+                                              eng.max_len, wall / steps[0])
+        print(f"serve: ServeEngine {name}, {SERVE_REQUESTS} requests x "
+              f"{SERVE_PROMPT}-token prompts, {SERVE_NEW} new tokens, "
+              f"{SERVE_SLOTS} slots: {steps[0]} decode steps in {wall:.2f} "
+              f"s ({steps[0] / wall:.1f} steps/s, "
+              f"{SERVE_REQUESTS * SERVE_NEW / wall:.2f} generated tok/s); "
+              f"first tokens equal the kernel prefill's argmax for "
+              f"{sum(agree)}/{SERVE_REQUESTS} (top-2 margins "
+              f"{np.round(margin, 3).tolist()}); max |decode - prefill| "
+              f"logit {diff:.3g} on {card}")
+    return res
+
+
+def lm_kernel_rows(smoke, card, launches):
+    """Phase 4 for the LM kernels: time at the zamba2 prefill shapes."""
+    torch = smoke.torch
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
+    from repro_torch.kernels.ssd_scan import ref as ssd_ref
+    B, Sq, Sk, H, _, D = ZAMBA_ATTN
+    shapes = []
+    for dtype in (torch.float32, torch.bfloat16):
+        q = smoke.randn((B, H, Sq, D), 101, dtype)
+        k = smoke.randn((B, H, Sk, D), 102, dtype)
+        v = smoke.randn((B, H, Sk, D), 103, dtype)
+        # causal: q_pos >= k_pos pairs, 2*D flops each for QK^T and for PV
+        flops = 4 * B * H * D * (Sq * (Sq + 1) // 2)
+        nbytes = 4 * B * H * Sq * D * q.element_size()
+        peak = ALU_OPS_PER_S if dtype == torch.float32 else BF16_FLOPS_PER_S
+        t_ops, t_bytes = flops / peak * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+        shapes.append({
+            "dtype": str(dtype)[6:], "shape": [B, H, Sq, D], "causal": True,
+            "ms": smoke.device_ms(lambda: fa_kernel.flash_attention_bhsd(
+                q, k, v, causal=True), reps=20),
+            "plain_ms": smoke.timeit(lambda: fa_ref.attention_ref(
+                q, k, v, True), reps=3),
+            "library_ms": smoke.device_ms(
+                lambda: torch.nn.functional.scaled_dot_product_attention(
+                    q, k, v, is_causal=True), reps=20),
+            "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "flops": flops, "bytes": nbytes})
+    head = shapes[0]
+    rows = [{"name": "flash_attention", "route": "cuda",
+             "source": SOURCES["flash_attention"][0],
+             "replaces": SOURCES["flash_attention"][1],
+             "launches": launches["flash_attention"],
+             "path": "lm.prefill(zamba2-2.7b, 2 x 2048, f32)",
+             "max_abs_err": smoke.err["flash_attention"],
+             "max_abs_err_by": smoke.err_by["flash_attention"],
+             "ms": head["ms"], "plain_ms": head["plain_ms"],
+             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+             "library_ms": head["library_ms"],
+             "library": "torch.nn.functional.scaled_dot_product_attention",
+             "shape": f"({B}, {H}, {Sq}, {D}) causal f32",
+             "shapes": shapes, "card": card}]
+
+    b, h, nc, L, p, n = 2, 80, PREFILL_S // 128, 128, 64, 64
+    x = smoke.randn((b, h, nc, L, p), 111)
+    dt = torch.nn.functional.softplus(smoke.randn((b, h, nc, L), 112))
+    dA = dt * -torch.exp(smoke.randn((1, h, 1, 1), 113, scale=0.3))
+    Bm = smoke.randn((b, nc, L, n), 114, scale=0.3)
+    Cm = smoke.randn((b, nc, L, n), 115, scale=0.3)
+    # per (batch, chunk): C.B^T for m <= l, shared by the heads; per
+    # (batch, head, chunk): the masked att @ x, the carried-state term
+    # C.state^T and the state update x^T B (+ the decay of the old state)
+    tri = L * (L + 1) // 2
+    flops = (b * nc * 2 * tri * n
+             + b * h * nc * (2 * tri * p + 4 * L * p * n + p * n))
+    nbytes = 4 * (2 * x.numel() + 2 * dt.numel() + 2 * Bm.numel()
+                  + b * h * p * n)
+    t_ops, t_bytes = flops / ALU_OPS_PER_S * 1e3, \
+        nbytes / HBM_BYTES_PER_S * 1e3
+    rows.append({
+        "name": "ssd_scan", "route": "cuda",
+        "source": SOURCES["ssd_scan"][0], "replaces": SOURCES["ssd_scan"][1],
+        "launches": launches["ssd_scan"],
+        "path": "lm.prefill(zamba2-2.7b, 2 x 2048, f32)",
+        "max_abs_err": smoke.err["ssd_scan"],
+        "max_abs_err_by": smoke.err_by["ssd_scan"],
+        "ms": smoke.device_ms(lambda: ssd_kernel.ssd_scan_grid(
+            x, dt, dA, Bm, Cm), reps=20),
+        "plain_ms": smoke.timeit(lambda: ssd_ref.ssd_scan_grid_ref(
+            x, dt, dA, Bm, Cm), reps=3),
+        "bound_ms": max(t_ops, t_bytes),
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "library_ms": None, "flops": flops, "bytes": nbytes,
+        "shape": f"({b}, {h}, {nc}, {L}, {p}), n={n}, f32", "card": card})
+    return rows
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write the full results as JSON here")
@@ -498,6 +1002,10 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
+    # full f32 everywhere: the float kernels and their references are held
+    # to f32 tolerances, which TF32 (10-bit mantissa) would not meet
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch import _build
     from repro_torch.core import cachesim, runner
@@ -530,10 +1038,15 @@ def main() -> int:
     smoke.check_lru_sets()
     smoke.check_prime_probe()
     smoke.check_engine()
+    smoke.check_flash_attention()
+    smoke.check_ssd_scan()
     smoke.sync()
     out["phases"]["kernels_s"] = time.perf_counter() - t0
-    print(f"kernels: all bit-exact vs plain (checks {smoke.checks}, "
-          f"launches {dict(_build.LAUNCHES)}) in "
+    print(f"kernels: cachesim_engine, lru_sets, prime_probe bit-exact vs "
+          f"plain; max abs err flash_attention "
+          f"{smoke.err_by['flash_attention']}, ssd_scan "
+          f"{smoke.err_by['ssd_scan']}, within the stated tolerances "
+          f"(checks {smoke.checks}, launches {dict(_build.LAUNCHES)}) in "
           f"{out['phases']['kernels_s']:.1f} s")
 
     # -- 3. main path -----------------------------------------------------------------
@@ -627,6 +1140,11 @@ def main() -> int:
         raise AssertionError(f"kernel paths launched {path_launches}")
     print(f"paths: simulate_rows(1024x8x128) and probe_verdicts at B in "
           f"{list(votes)} launched {path_launches}")
+
+    t0 = time.perf_counter()
+    serve = serve_main_path(smoke, card)
+    out["phases"]["serve_s"] = time.perf_counter() - t0
+    out["serve"] = serve
 
     # -- 4. times -----------------------------------------------------------------
     # "ms" is device time per launch (Smoke.device_ms), "plain_ms" the
@@ -743,10 +1261,19 @@ def main() -> int:
                                  reps=1, warmup=0),
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
         "shape": f"({B}, {W}) x {T}", "card": card})
+    rows += lm_kernel_rows(smoke, card, serve["prefill_float32"]["launches"])
     for r in rows:
+        lib = (f", library {r['library_ms']:.4f} ms"
+               if r["library_ms"] is not None else "")
         print(f"time {r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.2f}"
-              f" ms, bound {r['bound_ms']:.7f} ms by {r['bound_by']}) at "
-              f"{r['shape']} on {card}")
+              f" ms, bound {r['bound_ms']:.7f} ms by {r['bound_by']}{lib}) "
+              f"at {r['shape']}, {r['launches']} launches on its path, on "
+              f"{card}")
+    for sh in rows[3]["shapes"][1:]:
+        print(f"time flash_attention {sh['dtype']} {tuple(sh['shape'])}: "
+              f"{sh['ms']:.4f} ms (plain {sh['plain_ms']:.2f} ms, bound "
+              f"{sh['bound_ms']:.7f} ms by {sh['bound_by']}, library "
+              f"{sh['library_ms']:.4f} ms) on {card}")
     for s in engine_shapes:
         print(f"time cachesim_engine {s['entry']} {s['geometry']} "
               f"{tuple(s['shape'])}: {s['ms']:.4f} ms (plain "

@@ -1,10 +1,11 @@
 """CacheX on PyTorch and CUDA: the port of the `repro` JAX package.
 
 The package mirrors the JAX package's module names (`repro_torch.core.*`
-beside `repro.core.*`, `repro_torch.kernels.*` beside `repro.kernels.*`)
-and imports neither JAX nor `repro`.  Machine state lives in torch
-tensors on one device; the host logic stays numpy, exactly as in the
-reference, so seeded runs are bit-identical.
+beside `repro.core.*`, and likewise `kernels`, `configs`, `models`,
+`serve` and `launch`) and imports neither JAX nor `repro`.  Machine state
+lives in torch tensors on one device; the host logic stays numpy, exactly
+as in the reference, so seeded cache-simulator runs are bit-identical.
+The LM stack keeps the JAX parameter pytree as nested dicts of tensors.
 
 Entry points run on the CUDA card unless the caller asks for the CPU
 (``device="cpu"``), where every kernel wrapper runs its plain PyTorch

@@ -14,8 +14,8 @@ returns ``cudaGetLastError()``; :func:`call` raises on a non-zero code.
 
 Launch counters live here: each wrapper adds one to :data:`LAUNCHES`
 under its kernel's name where it launches the kernel, and the plain
-engine adds one to :data:`PLAIN_CALLS` per call, so a run can show which
-path it took.
+engine and the LM kernels' wrappers on CPU tensors add one to
+:data:`PLAIN_CALLS` per call, so a run can show which path it took.
 """
 
 from __future__ import annotations
@@ -38,6 +38,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
+_L, _F = ctypes.c_int64, ctypes.c_float
 #: source name -> {C function: argument types}; every function returns int.
 SIGNATURES: Dict[str, Dict[str, tuple]] = {
     "cachesim_engine": {
@@ -49,6 +50,13 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
     },
     "cache_probe": {
         "prime_probe_launch": (_P,) * 7 + (_I,) * 4 + (_P,),
+    },
+    "flash_attention": {
+        "flash_attention_launch": (_P,) * 4 + (_I,) * 6 + (_L,) * 12
+                                  + (_I, _I, _F, _P),
+    },
+    "ssd_scan": {
+        "ssd_scan_launch": (_P,) * 7 + (_I,) * 6 + (_P,),
     },
 }
 SOURCES = tuple(SIGNATURES)

@@ -1,0 +1,208 @@
+"""GQA attention: the full-sequence (training / prefill) path and the
+one-token decode path.  The port of `repro.models.attention`.
+
+`chunked_attention` is the reference semantics of the flash-attention
+kernel; ``impl`` selects the backend of `attention_train`: ``"ref"`` runs
+`chunked_attention`, ``"kernel"`` the hand-written CUDA kernel
+(`repro_torch.kernels.flash_attention`; the JAX package's ``"pallas"``).
+Both compute the same online-softmax recurrence.  Layouts are the JAX
+package's: (B, S, H, D) activations, (B, Smax, Hkv, D) caches.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+import repro_torch
+from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.models.layers import _normal, apply_rope, cast
+
+__all__ = ["NEG_INF", "AttnConfig", "init_attention", "qkv_proj",
+           "chunked_attention", "attention_train", "init_kv_cache",
+           "attention_decode"]
+
+NEG_INF = -1e30
+
+
+@dataclasses.dataclass(frozen=True)
+class AttnConfig:
+    d_model: int
+    n_heads: int           # padded query heads (multiple of TP)
+    n_kv_heads: int        # effective kv heads after replication policy
+    head_dim: int
+    qkv_bias: bool = False
+    causal: bool = True
+    rope_theta: float = 10000.0
+    chunk_q: int = 512
+    chunk_k: int = 1024
+
+
+def init_attention(gen: torch.Generator, cfg: AttnConfig,
+                   dtype=torch.float32):
+    s = cfg.d_model ** -0.5
+    hq, hkv = cfg.n_heads * cfg.head_dim, cfg.n_kv_heads * cfg.head_dim
+    p = {
+        "wq": _normal(gen, (cfg.d_model, hq), dtype) * s,
+        "wk": _normal(gen, (cfg.d_model, hkv), dtype) * s,
+        "wv": _normal(gen, (cfg.d_model, hkv), dtype) * s,
+        "wo": _normal(gen, (hq, cfg.d_model), dtype) * hq ** -0.5,
+    }
+    if cfg.qkv_bias:
+        for name, width in (("bq", hq), ("bk", hkv), ("bv", hkv)):
+            p[name] = torch.zeros((width,), dtype=dtype, device=gen.device)
+    return p
+
+
+def qkv_proj(params, cfg: AttnConfig, x: torch.Tensor,
+             positions: torch.Tensor, compute_dtype=torch.bfloat16):
+    B, S, _ = x.shape
+    x = cast(x, compute_dtype)
+    q = x @ cast(params["wq"], compute_dtype)
+    k = x @ cast(params["wk"], compute_dtype)
+    v = x @ cast(params["wv"], compute_dtype)
+    if cfg.qkv_bias:
+        q = q + cast(params["bq"], compute_dtype)
+        k = k + cast(params["bk"], compute_dtype)
+        v = v + cast(params["bv"], compute_dtype)
+    q = q.reshape(B, S, cfg.n_heads, cfg.head_dim)
+    k = k.reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
+    v = v.reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def _expand_kv(k: torch.Tensor, n_heads: int) -> torch.Tensor:
+    """(B,S,Hkv,D) -> (B,S,H,D) by repeating each kv head for its q group."""
+    rep = n_heads // k.shape[2]
+    if rep == 1:
+        return k
+    return k.repeat_interleave(rep, dim=2)
+
+
+def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      causal: bool, chunk_q: int, chunk_k: int,
+                      kv_offset: int = 0) -> torch.Tensor:
+    """Flash-style online-softmax attention over KV chunks.
+
+    q: (B, Sq, H, D); k/v: (B, Sk, H, D).  `kv_offset`: absolute position
+    of k[0] relative to q[0] (prefill = 0).  Loops over query chunks and,
+    inside, over key chunks, in the order of the JAX scan.
+    """
+    B, Sq, H, D = q.shape
+    Sk = k.shape[1]
+    scale = D ** -0.5
+    nq = max(1, (Sq + chunk_q - 1) // chunk_q)
+    nk = max(1, (Sk + chunk_k - 1) // chunk_k)
+    cq = -(-Sq // nq)
+    ck = -(-Sk // nk)
+    dev = q.device
+    qf = q.float().transpose(1, 2)                 # (B,H,Sq,D)
+    kf = k.float().transpose(1, 2)
+    vf = v.float().transpose(1, 2)
+    q_pos = torch.arange(Sq, device=dev)
+    k_pos = torch.arange(Sk, device=dev) + kv_offset
+    outs = []
+    for qi in range(nq):
+        qs = slice(qi * cq, (qi + 1) * cq)
+        q_blk = qf[:, :, qs]
+        rows = q_blk.shape[2]
+        acc = torch.zeros((B, H, rows, D), dtype=torch.float32, device=dev)
+        m = torch.full((B, H, rows), NEG_INF, dtype=torch.float32,
+                       device=dev)
+        l = torch.zeros((B, H, rows), dtype=torch.float32, device=dev)
+        for ki in range(nk):
+            ks = slice(ki * ck, (ki + 1) * ck)
+            s = torch.einsum("bhqd,bhkd->bhqk", q_blk, kf[:, :, ks]) * scale
+            if causal:
+                mask = q_pos[qs][:, None] >= k_pos[ks][None, :]
+                s = torch.where(mask[None, None], s, NEG_INF)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(dim=-1)
+            acc = acc * corr[..., None] + torch.einsum(
+                "bhqk,bhkd->bhqd", p, vf[:, :, ks])
+            m = m_new
+        outs.append(acc / torch.clamp(l[..., None], min=1e-30))
+    out = torch.cat(outs, dim=2).transpose(1, 2)   # (B,Sq,H,D)
+    return out.to(q.dtype)
+
+
+def attention_train(params, cfg: AttnConfig, x: torch.Tensor,
+                    positions: torch.Tensor, compute_dtype=torch.bfloat16,
+                    impl: str = "ref") -> torch.Tensor:
+    """Full-sequence attention (training / prefill).  The kv heads are
+    expanded before the backend, as in the JAX package, so the kernel
+    sees one kv head per query head on this path."""
+    B, S, _ = x.shape
+    q, k, v = qkv_proj(params, cfg, x, positions, compute_dtype)
+    k = _expand_kv(k, cfg.n_heads)
+    v = _expand_kv(v, cfg.n_heads)
+    if impl == "kernel":
+        out = fa_ops.flash_attention(q, k, v, causal=cfg.causal)
+    elif impl == "ref":
+        out = chunked_attention(q, k, v, cfg.causal,
+                                min(cfg.chunk_q, S), min(cfg.chunk_k, S))
+    else:
+        raise ValueError(f"attention impl {impl!r}: expected 'ref' or "
+                         f"'kernel'")
+    out = out.reshape(B, S, cfg.n_heads * cfg.head_dim)
+    return out @ cast(params["wo"], compute_dtype)
+
+
+# -- decode path -----------------------------------------------------------------
+
+def init_kv_cache(batch: int, max_len: int, cfg: AttnConfig,
+                  dtype=torch.bfloat16, device=None):
+    shape = (batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    dev = repro_torch.resolve_device(device)
+    return {"k": torch.zeros(shape, dtype=dtype, device=dev),
+            "v": torch.zeros(shape, dtype=dtype, device=dev)}
+
+
+def attention_decode(params, cfg: AttnConfig, x: torch.Tensor, cache,
+                     pos: int, compute_dtype=torch.bfloat16,
+                     cache_update: str = "dus"):
+    """One-token decode: x (B,1,d); cache k/v (B,Smax,Hkv,D); pos int.
+    Returns (out, new cache); the given cache is not modified.
+
+    cache_update: ``"dus"`` writes the new k/v at ``pos`` into a copy of
+    the cache; ``"blend"`` selects them with a one-hot mask over the
+    sequence axis (the JAX package's collective-free variant for
+    sequence-sharded caches).  Both give the same caches.  The kv heads
+    are never expanded: queries are grouped per kv head.
+    """
+    B = x.shape[0]
+    positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
+    q, k_new, v_new = qkv_proj(params, cfg, x, positions, compute_dtype)
+    if cache_update == "blend":
+        sel = (torch.arange(cache["k"].shape[1], device=x.device)
+               == pos)[None, :, None, None]
+        k_cache = torch.where(sel, k_new.to(cache["k"].dtype), cache["k"])
+        v_cache = torch.where(sel, v_new.to(cache["v"].dtype), cache["v"])
+    elif cache_update == "dus":
+        k_cache = cache["k"].clone()
+        v_cache = cache["v"].clone()
+        k_cache[:, pos:pos + 1] = k_new.to(k_cache.dtype)
+        v_cache[:, pos:pos + 1] = v_new.to(v_cache.dtype)
+    else:
+        raise ValueError(f"cache_update {cache_update!r}: expected 'dus' "
+                         f"or 'blend'")
+
+    Hkv = cfg.n_kv_heads
+    group = cfg.n_heads // Hkv
+    qg = q.reshape(B, 1, Hkv, group, cfg.head_dim).float()
+    kf = k_cache.float()
+    vf = v_cache.float()
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, kf) * (cfg.head_dim ** -0.5)
+    mask = (torch.arange(kf.shape[1], device=x.device)
+            <= pos)[None, None, None, None, :]
+    s = torch.where(mask, s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", p, vf)
+    out = out.reshape(B, 1, cfg.n_heads * cfg.head_dim).to(compute_dtype)
+    out = out @ cast(params["wo"], compute_dtype)
+    return out, {"k": k_cache, "v": v_cache}

@@ -1,0 +1,334 @@
+"""Language-model assembly for the dense, ssm and hybrid families: the
+serving half of `repro.models.lm`.
+
+Families:
+  dense    GQA transformer (qwen2.5-14b, yi-6b, qwen1.5-4b/0.5b)
+  ssm      attention-free Mamba2/SSD stack (mamba2-2.7b)
+  hybrid   Mamba2 stack with a shared attention+MLP block applied before
+           every `hybrid_every` layers, alternating `n_shared_blocks`
+           parameter sets (zamba2-2.7b)
+The moe, encoder and vlm families and the training loss are not ported
+yet (ROADMAP.md) and raise `NotImplementedError`.
+
+Parameters are nested dicts of tensors with a leading stacked `layers`
+axis, key for key the JAX package's pytree, so `params_from_numpy` carries
+JAX weights across unchanged; Python loops over that axis replace
+`lax.scan`.  ``impl`` picks the full-sequence backends: ``"kernel"`` (the
+hand-written CUDA flash-attention and SSD kernels; the JAX package's
+``"pallas"``) or ``"ref"`` (`chunked_attention`, `ssd_chunked_ref`).
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import torch
+
+import repro_torch
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models import attention as attn
+from repro_torch.models import layers as L
+from repro_torch.models import mamba2 as m2
+from repro_torch.models.attention import AttnConfig
+from repro_torch.models.mamba2 import MambaConfig
+
+__all__ = ["attn_config", "mamba_config", "init_params", "mask_vocab_pad",
+           "backbone", "embed_inputs", "init_caches", "decode_step",
+           "prefill", "params_from_numpy", "caches_from_numpy"]
+
+_FAMILIES = ("dense", "ssm", "hybrid")
+
+
+def _check_family(cfg: ArchConfig) -> None:
+    if cfg.family not in _FAMILIES:
+        raise NotImplementedError(
+            f"family {cfg.family!r} ({cfg.name}) is not ported to PyTorch "
+            f"yet: the port runs {', '.join(_FAMILIES)} (see ROADMAP.md)")
+
+
+# -- config adapters -----------------------------------------------------------
+
+def attn_config(cfg: ArchConfig) -> AttnConfig:
+    return AttnConfig(
+        d_model=cfg.d_model,
+        n_heads=cfg.n_heads_padded,
+        n_kv_heads=cfg.n_kv_heads_eff,
+        head_dim=cfg.head_dim,
+        qkv_bias=cfg.qkv_bias,
+        causal=cfg.causal,
+        rope_theta=cfg.rope_theta,
+    )
+
+
+def mamba_config(cfg: ArchConfig) -> MambaConfig:
+    s = cfg.ssm
+    return MambaConfig(d_model=cfg.d_model, d_state=s.d_state,
+                       head_dim=s.head_dim, expand=s.expand,
+                       d_conv=s.d_conv, chunk=s.chunk)
+
+
+# -- pytree helpers -------------------------------------------------------------
+
+def _map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _stack(trees):
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return torch.stack(trees)
+
+
+def _index(tree, i: int):
+    """Layer ``i`` of a stacked tree (views, no copies)."""
+    return _map(lambda a: a[i], tree)
+
+
+def _tensor(a, device, dtype=None) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":     # ml_dtypes' bfloat16 (JAX arrays)
+        t = torch.from_numpy(a.view(np.uint16).astype(np.int16)).view(
+            torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.array(a))
+    return t.to(device=device, dtype=dtype or t.dtype)
+
+
+def params_from_numpy(tree, device, dtype=None):
+    """The JAX parameter pytree, as nested dicts of numpy arrays (e.g.
+    ``jax.tree_util.tree_map(np.asarray, params)``), as the port's dict of
+    tensors on ``device`` (in ``dtype`` where given, else each array's
+    own)."""
+    dev = repro_torch.resolve_device(device)
+    return _map(lambda a: _tensor(a, dev, dtype), tree)
+
+
+def caches_from_numpy(tree, device):
+    """A JAX decode-cache pytree (numpy leaves) as the port's caches on
+    ``device``, dtypes kept, so a JAX decode can be continued here."""
+    dev = repro_torch.resolve_device(device)
+    return _map(lambda a: _tensor(a, dev), tree)
+
+
+# -- init -----------------------------------------------------------------------
+
+def _init_layer(cfg: ArchConfig, gen: torch.Generator, dtype):
+    d = cfg.d_model
+    if cfg.family == "dense":
+        return {"norm_attn": L.init_rms_norm(d, dtype, gen.device),
+                "norm_mlp": L.init_rms_norm(d, dtype, gen.device),
+                "attn": attn.init_attention(gen, attn_config(cfg), dtype),
+                "mlp": L.init_mlp(gen, d, cfg.d_ff, dtype)}
+    return {"norm_attn": L.init_rms_norm(d, dtype, gen.device),
+            "ssm": m2.init_mamba(gen, mamba_config(cfg), dtype)}
+
+
+def init_params(cfg: ArchConfig, gen, dtype=torch.float32, device=None):
+    """Random parameters with the JAX pytree's keys and shapes.  ``gen`` is
+    a ``torch.Generator`` on ``device`` or an int seed for one; ``device``
+    None means the CUDA card."""
+    _check_family(cfg)
+    dev = repro_torch.resolve_device(device)
+    if isinstance(gen, int):
+        gen = torch.Generator(device=dev).manual_seed(gen)
+    if gen.device.type != dev.type:
+        raise ValueError(f"init_params: generator on {gen.device}, "
+                         f"parameters on {dev}")
+    params: Dict = {"embed": L.init_embed(gen, cfg.vocab_padded, cfg.d_model,
+                                          dtype)}
+    params["layers"] = _stack([_init_layer(cfg, gen, dtype)
+                               for _ in range(cfg.n_layers)])
+    if cfg.hybrid_every:
+        params["shared_blocks"] = _stack([
+            {"attn": attn.init_attention(gen, attn_config(cfg), dtype),
+             "mlp": L.init_mlp(gen, cfg.d_model, cfg.d_ff, dtype),
+             "norm_attn": L.init_rms_norm(cfg.d_model, dtype, dev),
+             "norm_mlp": L.init_rms_norm(cfg.d_model, dtype, dev)}
+            for _ in range(cfg.n_shared_blocks)])
+    params["final_norm"] = L.init_rms_norm(cfg.d_model, dtype, dev)
+    params["head"] = L.init_unembed(gen, cfg.d_model, cfg.vocab_padded,
+                                    dtype)
+    return params
+
+
+def mask_vocab_pad(cfg: ArchConfig, logits: torch.Tensor) -> torch.Tensor:
+    """Padded vocab entries must not leak probability mass."""
+    if cfg.vocab_padded == cfg.vocab:
+        return logits
+    keep = torch.arange(cfg.vocab_padded, device=logits.device) < cfg.vocab
+    return torch.where(keep, logits, -1e30)
+
+
+# -- forward blocks ---------------------------------------------------------------
+
+def _transformer_layer(cfg, p, x, positions, compute_dtype, impl):
+    h = L.rms_norm(x, p["norm_attn"])
+    x = x + attn.attention_train(p["attn"], attn_config(cfg), h, positions,
+                                 compute_dtype, impl)
+    h = L.rms_norm(x, p["norm_mlp"])
+    return x + L.mlp_swiglu(p["mlp"], h, compute_dtype)
+
+
+def _mamba_layer(cfg, p, x, compute_dtype, impl):
+    h = L.rms_norm(x, p["norm_attn"])
+    return x + m2.mamba_block(p["ssm"], mamba_config(cfg), h, compute_dtype,
+                              impl)
+
+
+def backbone(cfg: ArchConfig, params, x: torch.Tensor,
+             positions: torch.Tensor, compute_dtype=torch.bfloat16,
+             impl: str = "kernel") -> torch.Tensor:
+    """Layer stack -> final norm.  x: (B,S,d) embeddings.  (The JAX
+    function also returns the MoE auxiliary losses, which these families
+    do not have.)"""
+    _check_family(cfg)
+    layers = params["layers"]
+    if cfg.family == "dense":
+        for i in range(cfg.n_layers):
+            x = _transformer_layer(cfg, _index(layers, i), x, positions,
+                                   compute_dtype, impl)
+    elif cfg.family == "ssm":
+        for i in range(cfg.n_layers):
+            x = _mamba_layer(cfg, _index(layers, i), x, compute_dtype, impl)
+    else:   # hybrid: the shared block first, then `every` Mamba2 layers
+        every = cfg.hybrid_every
+        for gi in range(cfg.n_layers // every):
+            sp = _index(params["shared_blocks"], gi % cfg.n_shared_blocks)
+            x = _transformer_layer(cfg, sp, x, positions, compute_dtype,
+                                   impl)
+            for j in range(every):
+                x = _mamba_layer(cfg, _index(layers, gi * every + j), x,
+                                 compute_dtype, impl)
+    return L.rms_norm(x, params["final_norm"])
+
+
+def embed_inputs(cfg: ArchConfig, params, batch,
+                 compute_dtype=torch.bfloat16):
+    """Returns (x, positions, loss_mask) for a token batch."""
+    if cfg.family in ("encoder", "vlm"):
+        raise NotImplementedError(
+            f"{cfg.family} inputs (precomputed frame / patch embeddings) are "
+            f"not ported to PyTorch yet (see ROADMAP.md)")
+    x = L.embed_tokens(params["embed"], batch["tokens"], compute_dtype)
+    B, S = x.shape[:2]
+    positions = torch.arange(S, device=x.device).expand(B, S)
+    return x, positions, torch.ones((B, S), dtype=torch.float32,
+                                    device=x.device)
+
+
+# -- serving: prefill + decode ------------------------------------------------------
+
+def _on(params, device) -> torch.device:
+    """Resolve ``device`` (None = the card) and require the parameters to
+    live there."""
+    dev = repro_torch.resolve_device(device)
+    have = params["final_norm"].device
+    if have.type != dev.type:
+        raise ValueError(f"parameters are on {have}, the run asks for {dev}")
+    return have
+
+
+def init_caches(cfg: ArchConfig, batch: int, max_len: int,
+                dtype=torch.bfloat16, device=None):
+    """Decode caches: KV caches in ``dtype`` (per layer for dense, per group
+    for the hybrid's shared attention), Mamba2 caches in f32 per layer."""
+    _check_family(cfg)
+    dev = repro_torch.resolve_device(device)
+
+    def stacked(n, tree):
+        return _map(lambda a: a[None].expand((n,) + a.shape).clone(), tree)
+
+    caches: Dict = {}
+    if cfg.family in ("ssm", "hybrid"):
+        caches["ssm"] = stacked(cfg.n_layers, m2.init_mamba_cache(
+            batch, mamba_config(cfg), device=dev))
+    if cfg.family in ("dense", "hybrid"):
+        kv = attn.init_kv_cache(batch, max_len, attn_config(cfg), dtype, dev)
+        key, n = (("attn", cfg.n_layers) if cfg.family == "dense" else
+                  ("shared_attn", cfg.n_layers // cfg.hybrid_every))
+        caches[key] = stacked(n, kv)
+    return caches
+
+
+def _decode_block(cfg, p, h, cache, pos, compute_dtype, cache_update):
+    """Attention + MLP on one token: a dense layer or a shared block."""
+    hh = L.rms_norm(h, p["norm_attn"])
+    out, new_cache = attn.attention_decode(p["attn"], attn_config(cfg), hh,
+                                           cache, pos, compute_dtype,
+                                           cache_update)
+    h = h + out
+    hh = L.rms_norm(h, p["norm_mlp"])
+    return h + L.mlp_swiglu(p["mlp"], hh, compute_dtype), new_cache
+
+
+def _decode_mamba(cfg, p, h, cache, compute_dtype):
+    hn = L.rms_norm(h, p["norm_attn"])
+    out, new_cache = m2.mamba_decode_step(p["ssm"], mamba_config(cfg), hn,
+                                          cache, compute_dtype)
+    return h + out, new_cache
+
+
+def decode_step(cfg: ArchConfig, params, caches, tokens: torch.Tensor,
+                pos: int, compute_dtype=torch.bfloat16,
+                cache_update: str = "dus"):
+    """One-token decode.  tokens: (B,1); pos: int position.  Returns
+    (logits (B,1,V) f32, new caches); the given caches are not modified.
+    Decode runs no kernel (the JAX function's ``impl`` is unused there
+    too)."""
+    _check_family(cfg)
+    x = L.embed_tokens(params["embed"], tokens, compute_dtype)
+    layers = params["layers"]
+    new = dict(caches)
+    if cfg.family == "dense":
+        kv = []
+        for i in range(cfg.n_layers):
+            x, c = _decode_block(cfg, _index(layers, i), x,
+                                 _index(caches["attn"], i), pos,
+                                 compute_dtype, cache_update)
+            kv.append(c)
+        new["attn"] = _stack(kv)
+    else:
+        ssm = []
+        shared = []
+        every = cfg.hybrid_every if cfg.family == "hybrid" else cfg.n_layers
+        for gi in range(cfg.n_layers // every):
+            if cfg.family == "hybrid":
+                sp = _index(params["shared_blocks"],
+                            gi % cfg.n_shared_blocks)
+                x, c = _decode_block(cfg, sp, x,
+                                     _index(caches["shared_attn"], gi), pos,
+                                     compute_dtype, cache_update)
+                shared.append(c)
+            for j in range(every):
+                i = gi * every + j
+                x, c = _decode_mamba(cfg, _index(layers, i), x,
+                                     _index(caches["ssm"], i), compute_dtype)
+                ssm.append(c)
+        new["ssm"] = _stack(ssm)
+        if shared:
+            new["shared_attn"] = _stack(shared)
+    x = L.rms_norm(x, params["final_norm"])
+    logits = mask_vocab_pad(
+        cfg, L.unembed_logits(params["head"], x, compute_dtype))
+    return logits, new
+
+
+def prefill(cfg: ArchConfig, params, batch, compute_dtype=torch.bfloat16,
+            impl: str = "kernel", device=None):
+    """Full-sequence prefill: last-position logits (B,1,V) f32 of
+    ``batch["tokens"]`` (B,S).  With ``impl="kernel"`` every attention runs
+    the CUDA flash-attention kernel and every Mamba2 layer the CUDA SSD
+    kernel.  Like the JAX function it returns no caches (the JAX
+    signature's ``max_len`` and ``cache_dtype`` are unused there and
+    dropped here).  ``device`` None means the card; the parameters must
+    be there."""
+    dev = _on(params, device)
+    tokens = torch.as_tensor(batch["tokens"], device=dev)
+    x, positions, _ = embed_inputs(cfg, params, {"tokens": tokens},
+                                   compute_dtype)
+    x = backbone(cfg, params, x, positions, compute_dtype, impl)
+    return mask_vocab_pad(
+        cfg, L.unembed_logits(params["head"], x[:, -1:], compute_dtype))

@@ -19,6 +19,12 @@ from repro_torch.kernels.cache_probe import ops as probe_ops
 from repro_torch.kernels.cache_probe import ref as probe_ref
 from repro_torch.kernels.cachesim_step import ops as sim_ops
 from repro_torch.kernels.cachesim_step import ref as sim_ref
+from repro_torch.kernels.flash_attention import kernel as fa_kernel
+from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.flash_attention import ref as fa_ref
+from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
+from repro_torch.kernels.ssd_scan import ops as ssd_ops
+from repro_torch.kernels.ssd_scan import ref as ssd_ref
 
 pytestmark = pytest.mark.gpu
 GOLDEN = Path(__file__).parent / "data" / \
@@ -115,3 +121,108 @@ def test_run_cachex_on_the_card_matches_golden():
         json.loads(GOLDEN.read_text())
     assert _build.LAUNCHES["cachesim_engine"] == 361
     assert _build.PLAIN_CALLS["cachesim_engine"] == 0
+
+
+# -- the LM kernels: f32 within 2e-5 and bf16 within 2e-2 of the plain
+# versions (tests/test_kernels.py:15); both sides compute in full f32
+# (no TF32) and differ in the order of their sums.
+FA_TOL = {torch.float32: dict(rtol=2e-5, atol=2e-5),
+          torch.bfloat16: dict(rtol=2e-2, atol=2e-2)}
+
+
+def _randn(dev, shape, seed, dtype=torch.float32, scale=1.0):
+    a = np.random.default_rng(seed).standard_normal(shape) * scale
+    return torch.tensor(a.astype(np.float32), device=dev).to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Sq,Sk,Hq,Hkv,D,causal", [
+    (1, 128, 128, 2, 2, 64, True), (2, 256, 256, 4, 2, 64, True),
+    (1, 256, 256, 4, 1, 128, True), (2, 128, 128, 2, 2, 128, False),
+    (1, 384, 384, 6, 2, 64, True), (1, 200, 200, 4, 2, 80, True),
+    (2, 200, 200, 2, 2, 80, False), (1, 64, 130, 2, 2, 32, True)])
+def test_flash_attention_kernel_matches_plain(B, Sq, Sk, Hq, Hkv, D, causal,
+                                              dtype):
+    dev = _card()
+    q = _randn(dev, (B, Hq, Sq, D), 1, dtype)
+    k = _randn(dev, (B, Hkv, Sk, D), 2, dtype)
+    v = _randn(dev, (B, Hkv, Sk, D), 3, dtype)
+    n0 = _build.LAUNCHES["flash_attention"]
+    got = fa_kernel.flash_attention_bhsd(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["flash_attention"] == n0 + 1
+    assert got.dtype == dtype
+    want = fa_ref.attention_ref(q, k, v, causal)
+    torch.testing.assert_close(got.float(), want.float(), **FA_TOL[dtype])
+    # the model layout: strided (B, S, H, D) views, no transposed copies
+    bshd = fa_ops.flash_attention(q.transpose(1, 2).contiguous(),
+                                  k.transpose(1, 2).contiguous(),
+                                  v.transpose(1, 2).contiguous(), causal)
+    torch.testing.assert_close(bshd.transpose(1, 2).float(), got.float(),
+                               rtol=0, atol=0)
+
+
+def test_flash_attention_kernel_refuses_what_it_cannot_take():
+    dev = _card()
+    q = torch.zeros(1, 2, 16, 160, device=dev)
+    with pytest.raises(ValueError):
+        fa_kernel.flash_attention_bhsd(q, q, q)
+    h = q[..., :64].half()
+    with pytest.raises(TypeError):
+        fa_kernel.flash_attention_bhsd(h, h, h)
+
+
+@pytest.mark.parametrize("b,S,h,p,n,chunk", [
+    (1, 128, 4, 32, 16, 32), (2, 256, 8, 64, 32, 64),
+    (1, 256, 8, 64, 128, 128), (2, 64, 2, 32, 16, 64),
+    (2, 512, 80, 64, 64, 128)])
+def test_ssd_scan_kernel_matches_plain(b, S, h, p, n, chunk):
+    dev = _card()
+    x = _randn(dev, (b, S, h, p), 4)
+    dt = _randn(dev, (b, S, h), 5, scale=0.5)
+    A = -torch.exp(_randn(dev, (h,), 6, scale=0.3))
+    Bm = _randn(dev, (b, S, n), 7, scale=0.3)
+    Cm = _randn(dev, (b, S, n), 8, scale=0.3)
+    D = _randn(dev, (h,), 9)
+    n0 = _build.LAUNCHES["ssd_scan"]
+    y, st = ssd_ops.ssd_scan(x, dt, A, Bm, Cm, D, chunk=chunk)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["ssd_scan"] == n0 + 1
+    from repro_torch.models import mamba2
+    y_r, st_r = mamba2.ssd_chunked_ref(x, dt, A, Bm, Cm, D, chunk)
+    torch.testing.assert_close(y, y_r, rtol=2e-5, atol=2e-5)
+    torch.testing.assert_close(st, st_r, rtol=2e-5, atol=2e-5)
+
+
+def test_ssd_scan_grid_kernel_matches_its_plain_version():
+    dev = _card()
+    Bz, H, nc, L, p, n = 2, 6, 3, 128, 64, 128
+    x = _randn(dev, (Bz, H, nc, L, p), 10)
+    dt = torch.nn.functional.softplus(_randn(dev, (Bz, H, nc, L), 11))
+    dA = dt * -torch.exp(_randn(dev, (1, H, 1, 1), 12, scale=0.3))
+    Bm = _randn(dev, (Bz, nc, L, n), 13, scale=0.3)
+    Cm = _randn(dev, (Bz, nc, L, n), 14, scale=0.3)
+    y, st = ssd_kernel.ssd_scan_grid(x, dt, dA, Bm, Cm)
+    y_r, st_r = ssd_ref.ssd_scan_grid_ref(x, dt, dA, Bm, Cm)
+    torch.testing.assert_close(y, y_r, rtol=2e-5, atol=2e-5)
+    torch.testing.assert_close(st, st_r, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("arch", ["zamba2_2p7b", "qwen1p5_0p5b",
+                                  "mamba2_2p7b"])
+def test_reduced_prefill_on_the_card_runs_the_kernels(arch):
+    from repro_torch.configs.base import get_config, reduced_config
+    from repro_torch.models import lm
+    dev = _card()
+    cfg = reduced_config(get_config(arch))
+    params = lm.init_params(cfg, 0)
+    tokens = torch.randint(0, cfg.vocab, (2, 64), device=dev)
+    _build.reset_counters()
+    got = lm.prefill(cfg, params, {"tokens": tokens}, torch.float32,
+                     "kernel")
+    assert _build.PLAIN_CALLS == {}
+    assert _build.LAUNCHES["ssd_scan"] == (
+        0 if cfg.family == "dense" else cfg.n_layers)
+    want = lm.prefill(cfg, params, {"tokens": tokens}, torch.float32,
+                      "ref")
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-4)

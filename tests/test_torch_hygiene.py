@@ -24,6 +24,13 @@ def test_port_imports_neither_jax_nor_repro():
     code = ("import sys, repro_torch.core, repro_torch.kernels\n"
             "import repro_torch.kernels.cache_probe.ops\n"
             "import repro_torch.kernels.cachesim_step.ops\n"
+            "import repro_torch.kernels.flash_attention.ops\n"
+            "import repro_torch.kernels.ssd_scan.ops\n"
+            "import repro_torch.configs.base, repro_torch.configs.zamba2_2p7b\n"
+            "import repro_torch.models.lm, repro_torch.serve.engine\n"
+            "import repro_torch.launch.serve\n"
+            "from repro_torch.configs.base import ARCH_IDS, get_config\n"
+            "[get_config(a) for a in ARCH_IDS]\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or m.startswith('repro.')]\n"
             "print(bad)\n"
@@ -39,6 +46,68 @@ def test_public_surface_is_a_subset_of_the_jax_package():
     assert set(tcore.__all__) <= set(jcore.__all__)
     for name in tcore.__all__:
         assert hasattr(tcore, name), name
+
+
+# the port's names beyond the JAX package's: the weight/cache carriers and
+# the plain version of the SSD kernel's own function
+EXTRA = {"repro_torch.models.lm": {"params_from_numpy", "caches_from_numpy"},
+         "repro_torch.kernels.ssd_scan.ref": {"ssd_scan_grid_ref"}}
+
+
+@pytest.mark.parametrize("name", [
+    "configs.base", "models.layers", "models.attention", "models.mamba2",
+    "models.lm", "serve.engine", "launch.serve",
+    "kernels.flash_attention.ref",
+    "kernels.flash_attention.kernel", "kernels.flash_attention.ops",
+    "kernels.ssd_scan.ref", "kernels.ssd_scan.kernel",
+    "kernels.ssd_scan.ops"])
+def test_lm_modules_public_names_are_the_jax_modules(name):
+    import importlib
+    import inspect
+    port = importlib.import_module(f"repro_torch.{name}")
+    ref = importlib.import_module(f"repro.{name}")
+    extra = EXTRA.get(port.__name__, set())
+    assert set(port.__all__) - extra <= set(dir(ref))
+    assert extra <= set(port.__all__)
+    # every public function or class the port module defines is listed
+    own = {n for n, v in vars(port).items()
+           if not n.startswith("_") and (inspect.isfunction(v)
+                                         or inspect.isclass(v))
+           and v.__module__ == port.__name__}
+    assert own <= set(port.__all__), own - set(port.__all__)
+
+
+def test_serving_entry_points_default_to_the_card():
+    from repro_torch.configs.base import get_config, reduced_config
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import ServeEngine
+    cfg = reduced_config(get_config("zamba2_2p7b"))
+    if torch.cuda.is_available():
+        return
+    params = lm.init_params(cfg, 0, device="cpu")
+    tokens = np.zeros((1, 32), np.int32)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        lm.init_params(cfg, 0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        lm.prefill(cfg, params, {"tokens": tokens})
+    with pytest.raises(RuntimeError, match="CUDA"):
+        lm.init_caches(cfg, 1, 32)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ServeEngine(cfg, params)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        lm.params_from_numpy({"w": np.zeros(2, np.float32)}, None)
+    # asked for the CPU, both run
+    assert lm.prefill(cfg, params, {"tokens": tokens},
+                      device="cpu").shape == (1, 1, cfg.vocab_padded)
+    ServeEngine(cfg, params, device="cpu")
+
+
+def test_serve_cli_defaults_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the CLI would serve on it")
+    from repro_torch.launch import serve
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.main(["--arch", "zamba2-2.7b", "--reduced"])
 
 
 def test_entry_points_default_to_the_card():
