@@ -6,8 +6,8 @@
 Four phases, in order; any failure exits non-zero:
 
 1. build   — compiles every CUDA source of the port with nvcc for sm_90a
-             (one nvcc each, in parallel) and prints the build seconds and
-             the card's name and power limit;
+             (one nvcc each, in parallel) and prints the build seconds,
+             ptxas's register report and the card's name and power limit;
 2. kernels — holds each kernel against its plain PyTorch version on the
              card: `lru_sets` and `prime_probe` (bit for bit) at the shapes
              of tests/test_kernels.py, at the main path's shapes, and
@@ -19,8 +19,11 @@ Four phases, in order; any failure exits non-zero:
              `ssd_scan` against its plain version and the model's
              `ssd_chunked_ref` (within stated tolerances) at the shapes of
              tests/test_kernels.py, a ragged head-dim-80 case and the
-             zamba2-2.7b / mamba2-2.7b prefill shapes;
-3. main    — two paths, each with the launch counters set to 0 just
+             zamba2-2.7b / mamba2-2.7b prefill shapes; `triad` against
+             `triad_ref` (bit for bit) at the shapes of
+             tests/test_kernels.py, the monitor's 64 MiB probe (43,688
+             rows) and 1 GiB;
+3. main    — three paths, each with the launch counters set to 0 just
              before it and read just after:
              (i) `run_cachex("skylake_sp")`: the report must equal
              tests/data/torch_golden_run_cachex_skylake_sp.json, the engine
@@ -36,9 +39,22 @@ Four phases, in order; any failure exits non-zero:
              answers 6 requests of 256-token prompts (two waves of 4 slots,
              8 new tokens each) in f32, its first tokens held against the
              kernel prefill's argmax, and again in bf16;
+             (iii) training qwen1.5-0.5b at full width and depth (24
+             layers, d_model 1024, vocab 151,936; f32 weights from a seeded
+             torch.Generator on the card): `Trainer.run` for 5 steps of
+             8 x 2048 tokens in 2 microbatches, bf16 compute, remat
+             "full", with `PodMonitor(1)` timing the `triad` kernel
+             between steps; finite losses, the first near ln(vocab), one
+             triad launch per probe and no plain triad, a plan every step,
+             a 7.4 GB checkpoint written and deleted; then a restart check
+             on reduced qwen1.5-0.5b (2 steps, resume, equal to 4
+             continuous steps, deterministic algorithms) and an
+             accumulation check at full width in f32 (1 vs 2
+             microbatches, grad_norm within rel 2e-3);
 4. times   — times each kernel with CUDA events at the main path's shapes
-             beside its plain version, its bound and (for attention) the
-             PyTorch library call, and prints one `{"kernels": [...]}`
+             beside its plain version, its bound and the PyTorch library
+             call where one exists (the triad also at 256 MiB and 1 GiB,
+             and from a cold L2), and prints one `{"kernels": [...]}`
              line.
 
 The line before the last is `nvidia-smi`'s name and power limit of the
@@ -51,8 +67,12 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import math
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -92,6 +112,8 @@ SOURCES = {
                         "src/repro/kernels/flash_attention/kernel.py:80"),
     "ssd_scan": ("src/repro_torch/csrc/ssd_scan.cu",
                  "src/repro/kernels/ssd_scan/kernel.py:87"),
+    "triad": ("src/repro_torch/csrc/triad.cu",
+              "src/repro/kernels/cache_probe/kernel.py:32"),
 }
 
 
@@ -112,6 +134,7 @@ class Smoke:
         self.err = {k: 0 for k in SOURCES}   # max |kernel - plain| per kernel
         self.err_by = {}                      # the same per (kernel, tag)
         self.checks = {k: 0 for k in SOURCES}
+        self.triad_library_gap = 0.0         # torch.addcmul vs the kernel
 
     # -- helpers -------------------------------------------------------------
     def t(self, a, dtype=None):
@@ -593,6 +616,90 @@ class Smoke:
                 self.close("ssd_scan", what + " bf16 y", y, y_r,
                            **FA_TOL["bfloat16"], tag="bfloat16 inputs")
 
+    # -- phase 2e: triad ---------------------------------------------------------
+    def check_triad(self):
+        """Bit for bit against `triad_ref` (two roundings each): the shapes
+        of tests/test_kernels.py:236, the monitor's 64 MiB probe and 1
+        GiB (rows as `measure_hbm_bandwidth` makes them), a ragged and a
+        misaligned flat case; and `torch.addcmul` (which may fuse the
+        multiply-add) within one ulp of the product plus one of the
+        result."""
+        from repro_torch.kernels.cache_probe import kernel, ref
+        torch = self.torch
+        cases = [(rows, "test_kernels") for rows in (512, 1024, 64)]
+        cases += [(triad_rows(TRIAD_MONITOR_BYTES), "monitor 64 MiB"),
+                  (triad_rows(1 << 30), "1 GiB")]
+        for i, (rows, what) in enumerate(cases):
+            if what == "test_kernels":
+                a = torch.arange(rows * 128, dtype=torch.float32,
+                                 device=self.dev).reshape(rows, 128)
+                b = torch.full((rows, 128), 2.0, device=self.dev)
+                s = torch.tensor([3.0], device=self.dev)
+                self.exact("triad", f"{what} {rows} rows",
+                           kernel.triad(a, b, s), ref.triad_ref(a, b, s))
+            a = self.randn((rows, 128), 200 + i)
+            b = self.randn((rows, 128), 300 + i)
+            s = torch.tensor([1.0 / 3.0], device=self.dev)
+            got = kernel.triad(a, b, s)
+            self.exact("triad", f"{what} {rows} rows random", got,
+                       ref.triad_ref(a, b, s))
+            lib = torch.addcmul(b, a, s)
+            self.triad_library_gap = max(self.triad_library_gap,
+                                          fma_gap(lib, got, a * s))
+            del a, b, got, lib
+        # 4099 elements: float4s and a tail of 3 on 16-byte aligned
+        # pointers, then the scalar path on pointers off that grid
+        flat = self.randn((3 * 4100,), 400)
+        s = torch.tensor([-2.5], device=self.dev)
+        for lo, what in ((0, "ragged"), (1, "misaligned")):
+            a, b = flat[lo:lo + 4099], flat[4100 + lo:8199 + lo]
+            self.exact("triad", f"{what} flat 4099", kernel.triad(a, b, s),
+                       ref.triad_ref(a, b, s))
+        if self.triad_library_gap > 1:
+            raise AssertionError(f"torch.addcmul differs from the triad by "
+                                 f"{self.triad_library_gap:.3g} of its "
+                                 f"rounding bound (> 1)")
+
+    def exact(self, kernel: str, what: str, got, want) -> None:
+        """Float results equal bit for bit."""
+        if got.shape != want.shape or got.dtype != want.dtype:
+            raise AssertionError(f"{kernel} {what}: {tuple(got.shape)} "
+                                 f"{got.dtype} != {tuple(want.shape)} "
+                                 f"{want.dtype}")
+        err = float((got - want).abs().max()) if got.numel() else 0.0
+        self.err[kernel] = max(self.err[kernel], err)
+        self.checks[kernel] += 1
+        if not self.torch.equal(got, want):
+            bad = int((got != want).sum())
+            raise AssertionError(f"{kernel} {what}: {bad} of {got.numel()} "
+                                 f"values differ from the plain version "
+                                 f"(max abs err {err:.3g})")
+
+
+# the monitor's default probe size and the row arithmetic of
+# `measure_hbm_bandwidth` (three f32 streams, rows of 128, multiple of 8)
+TRIAD_MONITOR_BYTES = 64 * (1 << 20)
+
+
+def triad_rows(n_bytes: int) -> int:
+    return max(8, (n_bytes // 4 // 3 // 128) // 8 * 8)
+
+
+def fma_gap(lib, got, prod) -> float:
+    """|lib - got| as a share of what one fused multiply-add may differ
+    from a rounded product and a rounded sum: half an ulp of the product
+    and half an ulp of each result, so at most one ulp of the product plus
+    one of the larger result.  (Under cancellation the two can be many
+    ulps of the result apart, so the result's ulp alone is no bound.)"""
+    import torch
+    inf = torch.tensor(float("inf"), device=got.device)
+
+    def ulp(t):
+        t = t.abs()
+        return torch.nextafter(t, inf) - t
+    bound_ = ulp(prod) + ulp(torch.maximum(lib.abs(), got.abs()))
+    return float(((lib - got).abs() / bound_).max()) if got.numel() else 0.0
+
 
 def bound(nbytes: float, ops: float):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -914,6 +1021,426 @@ def serve_main_path(smoke, card):
     return res
 
 
+# -- the training path (qwen1.5-0.5b at full width and depth) -----------------------
+
+TRAIN_ARCH = "qwen1p5_0p5b"
+TRAIN_SEQ, TRAIN_BATCH, TRAIN_MICRO, TRAIN_STEPS = 2048, 8, 2, 5
+# Random weights give small logits, so the first softmax is near uniform
+# and the first loss near ln(vocab) = 11.93 (reduced qwen on the CPU starts
+# at 6.73 against ln 512 = 6.24).
+FIRST_LOSS_TOL = 2.0
+# 1 vs 2 microbatches at full width in f32: the same gradient summed in
+# another order (tests/test_train_integration.py:64's 2e-3).
+ACCUM_RTOL = 2e-3
+# Restart vs continuous run under deterministic algorithms: the same
+# computation in the same order, so equal; 1e-5 as in the CPU test.
+RESTART_RTOL = 1e-5
+
+
+def matmul_params(cfg):
+    """(layer weights that multiply activations: q, k, v, o and the three
+    MLP matrices of every layer; the unembedding)."""
+    d = cfg.d_model
+    hq, hkv = cfg.n_heads_padded * cfg.head_dim, \
+        cfg.n_kv_heads_eff * cfg.head_dim
+    layer = 2 * d * hq + 2 * d * hkv + 3 * d * cfg.d_ff
+    return layer * cfg.n_layers, d * cfg.vocab_padded
+
+
+def _profile_step(smoke, step_fn, state, batch, step_s):
+    """torch.profiler (device activity only) over one train step: kernels
+    and device-busy time, against the median wall of the unprofiled steps
+    (``step_s``; the profiled step's own wall carries the tracing)."""
+    from torch.profiler import ProfilerActivity, profile
+    t_all = time.perf_counter()
+    smoke.sync()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        new, _ = step_fn(state, batch)
+        smoke.sync()
+        wall = time.perf_counter() - t0
+    del new
+    busy_us, kernels, by_name = 0.0, 0, []
+    for e in prof.key_averages():
+        if str(e.device_type).endswith("CUDA"):
+            busy_us += e.self_device_time_total
+            kernels += e.count
+            by_name.append((e.self_device_time_total / 1e3, e.count, e.key))
+    by_name.sort(reverse=True)
+    return {"kernels": kernels, "device_busy_ms": busy_us / 1e3,
+            "profiled_wall_ms": wall * 1e3, "step_ms": step_s * 1e3,
+            "device_busy_share": busy_us / 1e3 / (step_s * 1e3),
+            "profile_s": time.perf_counter() - t_all,
+            "top_kernels": [{"ms": ms, "count": n, "name": k[:120]}
+                            for ms, n, k in by_name[:12]]}
+
+
+def train_main_path(smoke, card):
+    """Phase 3 (iii): `Trainer.run` of qwen1.5-0.5b at full width and depth
+    with the monitor timing the triad between steps.  The launch counters
+    are set to 0 just before `run` and read just after."""
+    torch = smoke.torch
+    from repro_torch import _build
+    from repro_torch._tree import tree_leaves
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.configs.base import ShapeSpec, get_config
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.tpuprobe.monitor import PodMonitor
+    from repro_torch.train import train_step as ts
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    cfg = get_config(TRAIN_ARCH)
+    shape = ShapeSpec("chip_smoke", TRAIN_SEQ, TRAIN_BATCH, "train")
+    hyper = ts.TrainHyper(microbatches=TRAIN_MICRO, remat="full",
+                          compute_dtype=torch.bfloat16)
+    t_setup = time.perf_counter()
+    abstract = ts.abstract_train_state(cfg, hyper, smoke.dev)
+    ckpt_bytes = sum(t.numel() * t.element_size()
+                     for t in tree_leaves(abstract))
+    n_params = sum(t.numel() for t in tree_leaves(abstract.params))
+    res = {"config": cfg.name, "n_layers": cfg.n_layers,
+           "d_model": cfg.d_model, "vocab": cfg.vocab,
+           "n_params": n_params, "seq": TRAIN_SEQ, "batch": TRAIN_BATCH,
+           "microbatches": TRAIN_MICRO, "steps": TRAIN_STEPS,
+           "compute_dtype": "bfloat16", "remat": "full",
+           "checkpoint_bytes": ckpt_bytes, "card": card}
+    (ROOT / "build").mkdir(exist_ok=True)
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_", dir=ROOT / "build")
+    try:
+        free = shutil.disk_usage(ckpt_dir).free
+        if free < 2 * ckpt_bytes:
+            raise RuntimeError(
+                f"train: {free / 1e9:.1f} GB free under {ckpt_dir}, the "
+                f"checkpoint needs {ckpt_bytes / 1e9:.1f} GB (twice that "
+                f"is required)")
+        monitor = PodMonitor(1, device=smoke.dev)     # clock=None: the card
+        tr = Trainer(cfg, shape, hyper,
+                     TrainerConfig(ckpt_dir=ckpt_dir, monitor_every=1,
+                                   data=DataConfig(seed=0)),
+                     monitor=monitor, device=smoke.dev)
+        # instrumentation: the host time of each probe and of the
+        # checkpoint, and the last state (for the profiled step)
+        probe_s, probe_bytes, ck, last = [], [], {}, {}
+        probe_once, step_fn = monitor.probe_once, tr._step
+        save_async, wait = tr.checkpointer.save_async, tr.checkpointer.wait
+
+        def timed_probe():
+            probe_bytes.append(monitor.probe_bytes)
+            t0 = time.perf_counter()
+            out = probe_once()
+            probe_s.append(time.perf_counter() - t0)
+            return out
+
+        def keep_state(state, batch):
+            new, metrics = step_fn(state, batch)
+            last["state"] = new
+            return new, metrics
+
+        def timed_save(step, tree):
+            t0 = time.perf_counter()
+            save_async(step, tree)
+            ck["snapshot_s"] = time.perf_counter() - t0
+            ck["t0"] = t0
+
+        def timed_wait():
+            wait()
+            if "t0" in ck and "write_done_s" not in ck:
+                ck["write_done_s"] = time.perf_counter() - ck["t0"]
+
+        monitor.probe_once, tr._step = timed_probe, keep_state
+        tr.checkpointer.save_async = timed_save
+        tr.checkpointer.wait = timed_wait
+        smoke.sync()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        res["setup_s"] = time.perf_counter() - t_setup
+        _build.reset_counters()
+        t0 = time.perf_counter()
+        log = tr.run(TRAIN_STEPS, seed=0)
+        run_s = time.perf_counter() - t0
+        launches, plain = dict(_build.LAUNCHES), dict(_build.PLAIN_CALLS)
+        peak = torch.cuda.max_memory_allocated()
+        probes = len(monitor.history)
+
+        losses = [r["loss"] for r in log]
+        if len(log) != TRAIN_STEPS or not all(map(math.isfinite, losses)):
+            raise AssertionError(f"train: losses {losses}")
+        if abs(losses[0] - math.log(cfg.vocab)) > FIRST_LOSS_TOL:
+            raise AssertionError(f"train: first loss {losses[0]:.3f}, not "
+                                 f"within {FIRST_LOSS_TOL} of ln(vocab) "
+                                 f"{math.log(cfg.vocab):.2f}")
+        if probes != TRAIN_STEPS or launches != {"triad": probes} or plain:
+            raise AssertionError(f"train: {probes} probes, launches "
+                                 f"{launches}, plain calls {plain}; expected "
+                                 f"one triad launch per probe and no plain "
+                                 f"call")
+        if not all(r.get("mb_plan") == [TRAIN_MICRO] for r in log):
+            raise AssertionError(f"train: plans {[r.get('mb_plan') for r in log]}")
+        if ckpt.list_steps(ckpt_dir) != [TRAIN_STEPS]:
+            raise AssertionError(f"train: checkpoints "
+                                 f"{ckpt.list_steps(ckpt_dir)}")
+        on_disk = sum(f.stat().st_size for f in
+                      Path(ckpt_dir, f"step_{TRAIN_STEPS:08d}").iterdir())
+
+        walls = [r["wall_s"] for r in log]
+        step_s = float(np.median(walls[1:]))
+        tokens = TRAIN_BATCH * TRAIN_SEQ
+        p_layers, p_head = matmul_params(cfg)
+        flops = 6 * (p_layers + p_head) * tokens + 2 * p_layers * tokens
+        samples = [h[0] for h in monitor.history]
+        probe_dt = [nb / x.effective_bw for nb, x in zip(probe_bytes, samples)]
+        res["run"] = {
+            "run_s": run_s, "losses": losses, "grad_norms":
+            [r["grad_norm"] for r in log], "lr": [r["lr"] for r in log],
+            "wall_s": walls, "median_step_s": step_s,
+            "tokens_per_s": tokens / step_s,
+            "model_flops_per_step": flops,
+            "model_tflops_per_s": flops / step_s / 1e12,
+            "bf16_peak_share": flops / step_s / BF16_FLOPS_PER_S,
+            "peak_memory_bytes": peak,
+            "memory_allocated_before_bytes": base, "launches": launches,
+            "plain_calls": plain, "probes": probes,
+            "probe_host_s": probe_s,
+            "probe_share_of_step": float(np.median(probe_s)) / step_s,
+            "probe_event_s": probe_dt,
+            "probe_bytes_each": probe_bytes,
+            "probe_effective_bw": [x.effective_bw for x in samples],
+            "probe_slowdown": [x.slowdown for x in samples],
+            "mb_plan": [r["mb_plan"] for r in log],
+            "checkpoint_snapshot_s": ck.get("snapshot_s"),
+            "checkpoint_write_done_s": ck.get("write_done_s"),
+            "checkpoint_bytes_on_disk": on_disk}
+        batch = {k: torch.as_tensor(v, device=smoke.dev) for k, v in
+                 make_batch(tr.tcfg.data, cfg, shape, TRAIN_STEPS).items()}
+        res["profile"] = _profile_step(smoke, step_fn, last.pop("state"),
+                                       batch, step_s)
+        del tr, monitor, batch
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    r, pr = res["run"], res["profile"]
+    print(f"train: {cfg.name} at full width and depth ({cfg.n_layers} "
+          f"layers, d_model {cfg.d_model}, vocab {cfg.vocab}, {n_params:,} "
+          f"f32 parameters), {TRAIN_STEPS} steps of {TRAIN_BATCH} x "
+          f"{TRAIN_SEQ} tokens in {TRAIN_MICRO} microbatches, bf16, remat "
+          f"full: losses {np.round(losses, 4).tolist()}, grad_norm "
+          f"{np.round(r['grad_norms'], 4).tolist()}; launches {launches}, "
+          f"plain calls {plain}; run {run_s:.2f} s on {card}")
+    print(f"train: median step {step_s * 1e3:.1f} ms (steps "
+          f"{np.round(np.array(walls) * 1e3, 1).tolist()} ms), "
+          f"{tokens / step_s:,.0f} tokens/s, model "
+          f"{flops / step_s / 1e12:.1f} TFLOP/s = "
+          f"{100 * flops / step_s / BF16_FLOPS_PER_S:.2f}% of the bf16 dense "
+          f"peak ({flops / 1e12:.2f} TFLOP a step: 6 x "
+          f"{(p_layers + p_head) / 1e6:.1f} M matmul weights x {tokens} "
+          f"tokens + the remat forward of {p_layers / 1e6:.1f} M); peak "
+          f"memory {peak / 2**30:.2f} GiB ({base / 2**30:.2f} GiB allocated "
+          f"before the run)")
+    print(f"train: monitor probe {np.round(np.array(probe_s) * 1e3, 3).tolist()}"
+          f" ms host ({100 * r['probe_share_of_step']:.3f}% of the median "
+          f"step), triad event time "
+          f"{np.round(np.array(probe_dt) * 1e6, 2).tolist()} us, effective "
+          f"{np.round(np.array(r['probe_effective_bw']) / 1e12, 3).tolist()} "
+          f"TB/s, slowdown {np.round(r['probe_slowdown'], 3).tolist()} "
+          f"(probes of {r['probe_bytes_each']} bytes)")
+    print(f"train: checkpoint {ckpt_bytes / 1e9:.2f} GB ({on_disk:,} bytes "
+          f"on disk): host snapshot {r['checkpoint_snapshot_s']:.2f} s, "
+          f"written {r['checkpoint_write_done_s']:.2f} s after the save "
+          f"began")
+    print(f"train: torch.profiler over one step: {pr['kernels']} kernels, "
+          f"{pr['device_busy_ms']:.1f} ms of device time, against the "
+          f"median step of {pr['step_ms']:.1f} ms: device busy "
+          f"{100 * pr['device_busy_share']:.1f}%"
+          + ("" if pr["kernels"] else " (the profiler saw no device activity)")
+          + f" (the profiled step took {pr['profiled_wall_ms']:.1f} ms, the "
+          f"profile {pr['profile_s']:.1f} s in all)")
+    for k in pr["top_kernels"]:
+        print(f"  {k['ms']:9.2f} ms {k['count']:6d} x {k['name'][:90]}")
+    t0 = time.perf_counter()
+    res["restart"] = restart_check(smoke, card)
+    res["restart"]["s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res["accumulation"] = accumulation_check(smoke, card)
+    res["accumulation"]["s"] = time.perf_counter() - t0
+    print(f"train: phase seconds: set-up {res['setup_s']:.1f}, run "
+          f"{run_s:.1f}, profile {pr['profile_s']:.1f}, restart "
+          f"{res['restart']['s']:.1f}, accumulation "
+          f"{res['accumulation']['s']:.1f}")
+    return res
+
+
+def restart_check(smoke, card):
+    """Reduced qwen1.5-0.5b on the card: 2 steps, a new trainer resumes
+    from the step-2 checkpoint to step 4; the losses equal those of 4
+    continuous steps.  Deterministic algorithms are on: the embedding's
+    backward would otherwise sum with atomics in a varying order."""
+    torch = smoke.torch
+    from repro_torch.configs.base import ShapeSpec, get_config, reduced_config
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.train import train_step as ts
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    cfg = reduced_config(get_config(TRAIN_ARCH))
+    shape = ShapeSpec("restart", 64, 8, "train")
+    hyper = ts.TrainHyper(microbatches=2, remat="full")
+    torch.use_deterministic_algorithms(True)
+    try:
+        with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+            def trainer(sub):
+                return Trainer(cfg, shape, hyper, TrainerConfig(
+                    ckpt_dir=os.path.join(d, sub), ckpt_every=2,
+                    data=DataConfig(seed=0)), device=smoke.dev)
+            cont = trainer("continuous").run(4)
+            trainer("split").run(2)
+            resumed = trainer("split").run(4)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    want = [r["loss"] for r in cont[2:]]
+    got = [r["loss"] for r in resumed]
+    if [r["step"] for r in resumed] != [3, 4] or any(
+            abs(g - w) > RESTART_RTOL * abs(w) for g, w in zip(got, want)):
+        raise AssertionError(f"restart: resumed steps "
+                             f"{[r['step'] for r in resumed]} losses {got}, "
+                             f"continuous {want}")
+    print(f"restart: {cfg.name} on the card, resumed at step 3 after a "
+          f"2-step run: losses {got} vs continuous {want} (equal bit for "
+          f"bit: {got == want})")
+    return {"config": cfg.name, "resumed": got, "continuous": want,
+            "exact": got == want, "card": card}
+
+
+def accumulation_check(smoke, card):
+    """One f32 step at full width from the same state with 1 and with 2
+    microbatches: grad_norm within ACCUM_RTOL."""
+    torch = smoke.torch
+    from repro_torch.configs.base import ShapeSpec, get_config
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.train import train_step as ts
+    cfg = get_config(TRAIN_ARCH)
+    shape = ShapeSpec("accumulation", TRAIN_SEQ, 4, "train")
+    batch = {k: torch.as_tensor(v, device=smoke.dev) for k, v in
+             make_batch(DataConfig(seed=1), cfg, shape, 0).items()}
+    out = {}
+    for nm in (1, 2):
+        hyper = ts.TrainHyper(microbatches=nm, remat="full",
+                              compute_dtype=torch.float32)
+        state = ts.make_train_state(
+            cfg, hyper, torch.Generator(device=smoke.dev).manual_seed(1),
+            smoke.dev)
+        smoke.sync()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        new, m = ts.build_train_step(cfg, hyper)(state, batch)
+        smoke.sync()
+        out[nm] = {"grad_norm": float(m["grad_norm"]),
+                   "loss": float(m["loss"]),
+                   "wall_s": time.perf_counter() - t0,
+                   "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+        del state, new
+        torch.cuda.empty_cache()
+    rel = abs(out[2]["grad_norm"] - out[1]["grad_norm"]) / out[1]["grad_norm"]
+    print(f"accumulation: {cfg.name} f32, 4 x {TRAIN_SEQ} tokens, one step: "
+          f"grad_norm {out[1]['grad_norm']:.6f} (1 microbatch) vs "
+          f"{out[2]['grad_norm']:.6f} (2), rel {rel:.2e} (tol {ACCUM_RTOL}); "
+          f"loss {out[1]['loss']:.6f} vs {out[2]['loss']:.6f}; peak memory "
+          f"{out[1]['peak_memory_bytes'] / 2**30:.2f} / "
+          f"{out[2]['peak_memory_bytes'] / 2**30:.2f} GiB; step "
+          f"{out[1]['wall_s']:.2f} / {out[2]['wall_s']:.2f} s on {card}")
+    if not rel <= ACCUM_RTOL:
+        raise AssertionError(f"accumulation: grad_norm rel diff {rel:.3g} > "
+                             f"{ACCUM_RTOL}")
+    return {"by_microbatches": out, "grad_norm_rel_diff": rel, "card": card}
+
+
+def triad_kernel_row(smoke, card, launches):
+    """Phase 4 for the triad: device time at 64 MiB (the monitor's probe),
+    256 MiB and 1 GiB, back to back and from a cold L2, beside its bound,
+    its plain version and `torch.addcmul`; and the monitor's own reading
+    (CUDA events) beside a host clock around the same launch."""
+    torch = smoke.torch
+    from repro_torch.kernels.cache_probe import kernel, ops, ref
+    # reading it evicts the triad's lines: 256 MiB > the 50 MB L2
+    flush = torch.ones((1 << 26,), dtype=torch.float32, device=smoke.dev)
+
+    def cold_ms(fn, reps=10):
+        times = []
+        for _ in range(reps):
+            flush.sum()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            times.append((start, end))
+        smoke.sync()
+        return float(np.median([a.elapsed_time(b) for a, b in times]))
+
+    shapes = []
+    for i, n_bytes in enumerate((TRIAD_MONITOR_BYTES, 256 << 20, 1 << 30)):
+        rows = triad_rows(n_bytes)
+        a = smoke.randn((rows, 128), 500 + i)
+        b = smoke.randn((rows, 128), 600 + i)
+        s = torch.tensor([1.0 / 3.0], device=smoke.dev)
+        n = rows * 128
+        b_ms, b_by = bound(12 * n, 2 * n)
+        reps = 50 if n_bytes <= (256 << 20) else 20
+        shapes.append({
+            "n_bytes": n_bytes, "rows": rows, "shape": [rows, 128],
+            "bytes_moved": 12 * n,
+            "ms": smoke.device_ms(lambda: kernel.triad(a, b, s), reps=reps),
+            "cold_ms": cold_ms(lambda: kernel.triad(a, b, s)),
+            "plain_ms": smoke.timeit(lambda: ref.triad_ref(a, b, s),
+                                     reps=20),
+            "library_ms": smoke.device_ms(lambda: torch.addcmul(b, a, s),
+                                          reps=reps),
+            "library_cold_ms": cold_ms(lambda: torch.addcmul(b, a, s)),
+            "bound_ms": b_ms, "bound_by": b_by})
+        del a, b
+    del flush
+    # the monitor's reading: fresh buffers, one launch timed on the device
+    # (`measure_hbm_bandwidth`); beside it, two readings of one launch made
+    # from Python on an idle device: CUDA events around it, and a host
+    # clock around it and a synchronize (as the JAX function times it)
+    event_s, naive_s, host_s = [], [], []
+    rows = triad_rows(TRIAD_MONITOR_BYTES)
+    for _ in range(10):
+        event_s.append(ops.measure_hbm_bandwidth(TRIAD_MONITOR_BYTES,
+                                                 reps=1)[1])
+        a = torch.ones((rows, 128), device=smoke.dev)
+        b = torch.ones((rows, 128), device=smoke.dev)
+        s = torch.ones((1,), device=smoke.dev)
+        smoke.sync()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        ops.probe_triad(a, b, s)
+        end.record()
+        end.synchronize()
+        naive_s.append(start.elapsed_time(end) / 1e3)
+        smoke.sync()
+        t0 = time.perf_counter()
+        ops.probe_triad(a, b, s)
+        smoke.sync()
+        host_s.append(time.perf_counter() - t0)
+    head = shapes[0]
+    moved = head["bytes_moved"]
+    row = {"name": "triad", "route": "cuda", "source": SOURCES["triad"][0],
+           "replaces": SOURCES["triad"][1], "launches": launches,
+           "path": "Trainer.run(qwen1.5-0.5b) -> PodMonitor.probe_once",
+           "max_abs_err": smoke.err["triad"],
+           "ms": head["ms"], "plain_ms": head["plain_ms"],
+           "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+           "library_ms": head["library_ms"], "library": "torch.addcmul",
+           "library_max_gap": smoke.triad_library_gap,
+           "cold_ms": head["cold_ms"],
+           "shape": f"({head['rows']}, 128) f32, the monitor's 64 MiB probe",
+           "monitor_event_ms": float(np.median(event_s)) * 1e3,
+           "python_event_ms": float(np.median(naive_s)) * 1e3,
+           "monitor_host_ms": float(np.median(host_s)) * 1e3,
+           "monitor_event_tb_per_s": moved / float(np.median(event_s)) / 1e12,
+           "python_event_tb_per_s": moved / float(np.median(naive_s)) / 1e12,
+           "monitor_host_tb_per_s": moved / float(np.median(host_s)) / 1e12,
+           "shapes": shapes, "card": card}
+    return row
+
 def lm_kernel_rows(smoke, card, launches):
     """Phase 4 for the LM kernels: time at the zamba2 prefill shapes."""
     torch = smoke.torch
@@ -998,6 +1525,9 @@ def main() -> int:
     ap.add_argument("--out", help="also write the full results as JSON here")
     args = ap.parse_args()
 
+    # cuBLAS reads this when it makes its first handle: the restart check
+    # runs with deterministic algorithms, which need it
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1040,10 +1570,13 @@ def main() -> int:
     smoke.check_engine()
     smoke.check_flash_attention()
     smoke.check_ssd_scan()
+    smoke.check_triad()
     smoke.sync()
     out["phases"]["kernels_s"] = time.perf_counter() - t0
-    print(f"kernels: cachesim_engine, lru_sets, prime_probe bit-exact vs "
-          f"plain; max abs err flash_attention "
+    print(f"kernels: cachesim_engine, lru_sets, prime_probe, triad bit-exact "
+          f"vs plain (torch.addcmul at {smoke.triad_library_gap:.3f} of one "
+          f"ulp of the product plus one of the result from the triad); max "
+          f"abs err flash_attention "
           f"{smoke.err_by['flash_attention']}, ssd_scan "
           f"{smoke.err_by['ssd_scan']}, within the stated tolerances "
           f"(checks {smoke.checks}, launches {dict(_build.LAUNCHES)}) in "
@@ -1145,6 +1678,11 @@ def main() -> int:
     serve = serve_main_path(smoke, card)
     out["phases"]["serve_s"] = time.perf_counter() - t0
     out["serve"] = serve
+
+    t0 = time.perf_counter()
+    train = train_main_path(smoke, card)
+    out["phases"]["train_s"] = time.perf_counter() - t0
+    out["train"] = train
 
     # -- 4. times -----------------------------------------------------------------
     # "ms" is device time per launch (Smoke.device_ms), "plain_ms" the
@@ -1262,6 +1800,8 @@ def main() -> int:
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
         "shape": f"({B}, {W}) x {T}", "card": card})
     rows += lm_kernel_rows(smoke, card, serve["prefill_float32"]["launches"])
+    rows.append(triad_kernel_row(smoke, card,
+                                 train["run"]["launches"]["triad"]))
     for r in rows:
         lib = (f", library {r['library_ms']:.4f} ms"
                if r["library_ms"] is not None else "")
@@ -1274,6 +1814,27 @@ def main() -> int:
               f"{sh['ms']:.4f} ms (plain {sh['plain_ms']:.2f} ms, bound "
               f"{sh['bound_ms']:.7f} ms by {sh['bound_by']}, library "
               f"{sh['library_ms']:.4f} ms) on {card}")
+    tr_row = rows[-1]
+    for sh in tr_row["shapes"]:
+        print(f"time triad ({sh['rows']}, 128) = {sh['n_bytes'] >> 20} MiB "
+              f"probe, {sh['bytes_moved'] / 1e6:.1f} MB moved: "
+              f"{sh['ms'] * 1e3:.2f} us back to back "
+              f"({sh['bytes_moved'] / sh['ms'] / 1e9:.3f} TB/s), "
+              f"{sh['cold_ms'] * 1e3:.2f} us from a cold L2 "
+              f"({sh['bytes_moved'] / sh['cold_ms'] / 1e9:.3f} TB/s); bound "
+              f"{sh['bound_ms'] * 1e3:.2f} us; plain {sh['plain_ms'] * 1e3:.2f}"
+              f" us; torch.addcmul {sh['library_ms'] * 1e3:.2f} us (cold "
+              f"{sh['library_cold_ms'] * 1e3:.2f} us) on {card}")
+    print(f"time triad, the monitor's reading at 64 MiB "
+          f"(measure_hbm_bandwidth, device time): "
+          f"{tr_row['monitor_event_ms'] * 1e3:.2f} us "
+          f"({tr_row['monitor_event_tb_per_s']:.3f} TB/s); one launch from "
+          f"Python on an idle device: CUDA events around it "
+          f"{tr_row['python_event_ms'] * 1e3:.2f} us "
+          f"({tr_row['python_event_tb_per_s']:.3f} TB/s), host clock around "
+          f"it and a synchronize {tr_row['monitor_host_ms'] * 1e3:.2f} us "
+          f"({tr_row['monitor_host_tb_per_s']:.3f} TB/s); medians of 10 on "
+          f"{card}")
     for s in engine_shapes:
         print(f"time cachesim_engine {s['entry']} {s['geometry']} "
               f"{tuple(s['shape'])}: {s['ms']:.4f} ms (plain "

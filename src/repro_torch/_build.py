@@ -10,11 +10,12 @@ at first use, all sources at once (one nvcc process each, started
 together).  The file name carries a digest of the sources and flags, so
 an edited source is rebuilt and a stale library is never loaded.  Every C
 entry point takes ``void*`` device pointers and the CUDA stream and
-returns ``cudaGetLastError()``; :func:`call` raises on a non-zero code.
+returns a CUDA error code (``cudaGetLastError()`` after a launch);
+:func:`call` raises on a non-zero code.
 
 Launch counters live here: each wrapper adds one to :data:`LAUNCHES`
 under its kernel's name where it launches the kernel, and the plain
-engine and the LM kernels' wrappers on CPU tensors add one to
+engine and the LM and triad kernels' wrappers on CPU tensors add one to
 :data:`PLAIN_CALLS` per call, so a run can show which path it took.
 """
 
@@ -57,6 +58,10 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
     },
     "ssd_scan": {
         "ssd_scan_launch": (_P,) * 7 + (_I,) * 6 + (_P,),
+    },
+    "triad": {
+        "triad_launch": (_P,) * 4 + (_L,) + (_P,),
+        "triad_timed_launch": (_P,) * 4 + (_L, _I, _F) + (_P,) * 3,
     },
 }
 SOURCES = tuple(SIGNATURES)
@@ -142,9 +147,11 @@ def lib(name: str) -> ctypes.CDLL:
 
 
 def _error_fn(fn: str) -> str:
-    """``<kernel>_launch`` comes with ``<kernel>_error(code)``, which
-    returns ``cudaGetErrorString(code)`` from the library's own runtime."""
-    return fn.replace("_launch", "_error")
+    """``<kernel>[_timed]_launch`` comes with ``<kernel>_error(code)``,
+    which returns ``cudaGetErrorString(code)`` from the library's own
+    runtime."""
+    return fn.replace("_timed_launch", "_launch").replace("_launch",
+                                                          "_error")
 
 
 def call(name: str, fn: str, *args) -> None:
@@ -165,6 +172,17 @@ def ptr(t: Optional[torch.Tensor]) -> Optional[int]:
 def stream(device: torch.device) -> int:
     """The raw handle of PyTorch's current stream on ``device``."""
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def refuse_grad(name: str, *tensors: torch.Tensor) -> None:
+    """Raise if autograd would need a gradient through a kernel: the kernels
+    have no backward (the JAX package defines none for its Pallas kernels
+    either), and a ctypes launch returns a tensor cut from the graph, so
+    its gradient would be silently wrong.  Train with ``impl="ref"``."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: the kernel has no backward, and an input requires "
+            f"grad; train with impl='ref' (or call it under torch.no_grad())")
 
 
 def check_cuda(name: str, *tensors: torch.Tensor, dtypes=None) -> None:

@@ -3,8 +3,9 @@ version (`ref.py`) and its wrapper (`kernel.py`, `ops.py`).
 
   cachesim_step  per-set LRU simulation (`lru_sets`), from
                  `repro.kernels.cachesim_step`
-  cache_probe    batched Prime+Probe verdicts (`prime_probe`), from
-                 `repro.kernels.cache_probe`
+  cache_probe    batched Prime+Probe verdicts (`prime_probe`) and the
+                 STREAM triad (`triad`, the monitor's bandwidth probe),
+                 from `repro.kernels.cache_probe`
   _lru           the shared LRU touch (`csrc/lru_touch.cuh` on the card)
   flash_attention  GQA flash attention (`flash_attention_bhsd`), from
                  `repro.kernels.flash_attention`

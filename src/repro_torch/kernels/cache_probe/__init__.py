@@ -1,1 +1,2 @@
-"""Batched Prime+Probe verdicts: CUDA `prime_probe` and its plain version."""
+"""Cache probes: the CUDA STREAM triad (`triad`), the batched Prime+Probe
+verdicts (`prime_probe`) and their plain versions."""

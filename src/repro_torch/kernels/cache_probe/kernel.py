@@ -1,18 +1,75 @@
-"""`prime_probe`: the wrapper of the CUDA batched Prime+Probe verdict
-kernel (`csrc/cache_probe.cu`), the port of the Pallas kernel
-`repro.kernels.cache_probe.kernel.prime_probe`.
+"""`triad` and `prime_probe`: the wrappers of the CUDA STREAM triad
+(`csrc/triad.cu`) and batched Prime+Probe verdict (`csrc/cache_probe.cu`)
+kernels, the ports of the Pallas kernels of
+`repro.kernels.cache_probe.kernel`.
 
-On CUDA tensors it launches the kernel (and counts the launch in
-``_build.LAUNCHES["prime_probe"]``) or raises; on CPU tensors it runs the
-plain version, `ref.prime_probe_ref`.
+On CUDA tensors each launches its kernel (and counts the launch in
+``_build.LAUNCHES`` under its name) or raises; on CPU tensors it runs the
+plain version in `ref` (`triad` counts that in ``_build.PLAIN_CALLS``).
 """
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from repro_torch import _build
-from repro_torch.kernels.cache_probe.ref import prime_probe_ref
+from repro_torch.kernels.cache_probe.ref import prime_probe_ref, triad_ref
+
+__all__ = ["triad", "triad_device_seconds", "prime_probe"]
+
+
+def triad(a: torch.Tensor, b: torch.Tensor,
+          scale: torch.Tensor) -> torch.Tensor:
+    """a, b: (N, 128) f32 (any equal shapes on the card); scale: (1,) f32
+    on the same device.  Returns ``a * scale + b``.  Unlike the Pallas
+    kernel (blocks of min(512, N) rows, N a multiple of the block) it takes
+    any N; its ``block`` and ``interpret`` arguments have no counterpart."""
+    if a.shape != b.shape or tuple(scale.shape) != (1,):
+        raise ValueError(f"triad: shapes a {tuple(a.shape)}, b "
+                         f"{tuple(b.shape)}, scale {tuple(scale.shape)}")
+    _build.refuse_grad("triad", a, b, scale)
+    if a.device.type == "cpu":
+        _build.PLAIN_CALLS["triad"] += 1
+        return triad_ref(a, b, scale)
+    _build.check_cuda("triad", a, b, scale, dtypes=(torch.float32,) * 3)
+    out = torch.empty_like(a)
+    _build.call("triad", "triad_launch", _build.ptr(a), _build.ptr(b),
+                _build.ptr(scale), _build.ptr(out), a.numel(),
+                _build.stream(a.device))
+    _build.LAUNCHES["triad"] += 1
+    return out
+
+
+def triad_device_seconds(a: torch.Tensor, b: torch.Tensor,
+                         scale: torch.Tensor, reps: int = 1) -> float:
+    """Device seconds per triad over ``reps`` launches on CUDA tensors,
+    between CUDA events that no host time falls between
+    (``triad_timed_launch``: a spin first, then the start event, the
+    launches and the end event, all enqueued by one C call).  A reading
+    whose start event had already passed once all was enqueued is
+    repeated with a spin twice as long; every launch counts."""
+    if a.shape != b.shape or tuple(scale.shape) != (1,) or reps < 1:
+        raise ValueError(f"triad: shapes a {tuple(a.shape)}, b "
+                         f"{tuple(b.shape)}, scale {tuple(scale.shape)}, "
+                         f"reps {reps}")
+    _build.check_cuda("triad", a, b, scale, dtypes=(torch.float32,) * 3)
+    _build.refuse_grad("triad", a, b, scale)
+    out = torch.empty_like(a)
+    ms, hidden = ctypes.c_float(), ctypes.c_int()
+    spin_us = 200.0
+    for _ in range(6):
+        _build.call("triad", "triad_timed_launch", _build.ptr(a),
+                    _build.ptr(b), _build.ptr(scale), _build.ptr(out),
+                    a.numel(), int(reps), spin_us, _build.stream(a.device),
+                    ctypes.addressof(ms), ctypes.addressof(hidden))
+        _build.LAUNCHES["triad"] += reps
+        if hidden.value:
+            return ms.value / 1e3 / reps
+        spin_us *= 2
+    raise RuntimeError(f"triad: the host could not enqueue {reps} launches "
+                       f"within a {spin_us / 2:.0f} us spin")
 
 
 def prime_probe(tags: torch.Tensor, age: torch.Tensor,

@@ -1,9 +1,8 @@
-"""Plain PyTorch batched multi-set Prime+Probe verdict.
+"""Plain PyTorch versions of the cache-probe kernels: the STREAM triad and
+the batched multi-set Prime+Probe verdict.
 
-Mirrors `repro.kernels.cache_probe.ref.prime_probe_ref`; the CUDA kernel
-(`csrc/cache_probe.cu`) is held against it.  The STREAM triad of the JAX
-module belongs to the accelerator probes and is not part of this package
-yet.
+Mirrors `repro.kernels.cache_probe.ref`; the CUDA kernels
+(`csrc/triad.cu`, `csrc/cache_probe.cu`) are held against them.
 """
 
 from __future__ import annotations
@@ -11,6 +10,14 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels._lru import lru_touch
+
+__all__ = ["triad_ref", "prime_probe_ref"]
+
+
+def triad_ref(a: torch.Tensor, b: torch.Tensor, scale) -> torch.Tensor:
+    """out = a * scale + b; the canonical bandwidth-bound op (3 streams).
+    The product and the sum round separately (two eager operations)."""
+    return a * scale + b
 
 
 def prime_probe_ref(tags: torch.Tensor, age: torch.Tensor,

@@ -5,7 +5,9 @@
 On CUDA tensors it launches the kernel (and counts the launch in
 ``_build.LAUNCHES["ssd_scan"]``) or raises; on CPU tensors it runs the
 plain version, `ref.ssd_scan_grid_ref`, and counts that in
-``_build.PLAIN_CALLS``.
+``_build.PLAIN_CALLS``.  The kernel has no backward (the Pallas kernel has
+none either), so on any device it refuses inputs that require grad while
+grad mode is on, rather than return a result cut from the graph.
 """
 
 from __future__ import annotations
@@ -41,6 +43,7 @@ def ssd_scan_grid(x: torch.Tensor, dt: torch.Tensor, dA: torch.Tensor,
     if H % min(block_h, H) != 0:
         raise ValueError(f"ssd_scan: block_h {block_h} does not divide {H} "
                          f"heads")
+    _build.refuse_grad("ssd_scan", x, dt, dA, Bm, Cm)
     if x.device.type == "cpu":
         _build.PLAIN_CALLS["ssd_scan"] += 1
         return ssd_scan_grid_ref(x, dt, dA, Bm, Cm)

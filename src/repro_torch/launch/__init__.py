@@ -1,1 +1,3 @@
-"""Command-line launchers of the port (`python -m repro_torch.launch.serve`)."""
+"""Command-line launchers of the port (`python -m repro_torch.launch.serve`,
+`python -m repro_torch.launch.train`) and the card's constants
+(`launch.mesh`)."""

@@ -1,5 +1,5 @@
 """Language-model assembly for the dense, ssm and hybrid families: the
-serving half of `repro.models.lm`.
+port of `repro.models.lm` (training loss, prefill and decode).
 
 Families:
   dense    GQA transformer (qwen2.5-14b, yi-6b, qwen1.5-4b/0.5b)
@@ -7,25 +7,33 @@ Families:
   hybrid   Mamba2 stack with a shared attention+MLP block applied before
            every `hybrid_every` layers, alternating `n_shared_blocks`
            parameter sets (zamba2-2.7b)
-The moe, encoder and vlm families and the training loss are not ported
-yet (ROADMAP.md) and raise `NotImplementedError`.
+The moe, encoder and vlm families are not ported yet (ROADMAP.md) and
+raise `NotImplementedError`.
 
 Parameters are nested dicts of tensors with a leading stacked `layers`
 axis, key for key the JAX package's pytree, so `params_from_numpy` carries
 JAX weights across unchanged; Python loops over that axis replace
 `lax.scan`.  ``impl`` picks the full-sequence backends: ``"kernel"`` (the
 hand-written CUDA flash-attention and SSD kernels; the JAX package's
-``"pallas"``) or ``"ref"`` (`chunked_attention`, `ssd_chunked_ref`).
+``"pallas"``) or ``"ref"`` (`chunked_attention`, `ssd_chunked_ref`).  The
+kernels have no backward (nor do the JAX package's), so training runs
+``impl="ref"``, differentiated by autograd; a kernel given an input that
+requires grad raises.  ``remat`` checkpoints the same units as the JAX
+`scan` body (a layer; a hybrid group) with `torch.utils.checkpoint`.
 """
 
 from __future__ import annotations
 
 from typing import Dict
 
+import functools
+
 import numpy as np
 import torch
+from torch.utils import checkpoint as ckpt_util
 
 import repro_torch
+from repro_torch._tree import tree_map as _map
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
@@ -35,7 +43,7 @@ from repro_torch.models.mamba2 import MambaConfig
 
 __all__ = ["attn_config", "mamba_config", "init_params", "mask_vocab_pad",
            "backbone", "embed_inputs", "init_caches", "decode_step",
-           "prefill", "params_from_numpy", "caches_from_numpy"]
+           "prefill", "loss_fn", "params_from_numpy", "caches_from_numpy"]
 
 _FAMILIES = ("dense", "ssm", "hybrid")
 
@@ -70,12 +78,6 @@ def mamba_config(cfg: ArchConfig) -> MambaConfig:
 
 # -- pytree helpers -------------------------------------------------------------
 
-def _map(fn, tree):
-    if isinstance(tree, dict):
-        return {k: _map(fn, v) for k, v in tree.items()}
-    return fn(tree)
-
-
 def _stack(trees):
     if isinstance(trees[0], dict):
         return {k: _stack([t[k] for t in trees]) for k in trees[0]}
@@ -85,6 +87,13 @@ def _stack(trees):
 def _index(tree, i: int):
     """Layer ``i`` of a stacked tree (views, no copies)."""
     return _map(lambda a: a[i], tree)
+
+
+def _unstack(tree, n: int):
+    """The ``n`` layers of a stacked tree, as views (one `unbind` per leaf,
+    whose backward stacks the layers' gradients in one pass)."""
+    flat = _map(torch.unbind, tree)
+    return [_map(lambda parts: parts[i], flat) for i in range(n)]
 
 
 def _tensor(a, device, dtype=None) -> torch.Tensor:
@@ -178,30 +187,65 @@ def _mamba_layer(cfg, p, x, compute_dtype, impl):
                               impl)
 
 
+# matrix products whose outputs "dots" keeps (jax's checkpoint_dots)
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default, torch.ops.aten.baddbmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (ckpt_util.CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else ckpt_util.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(fn, policy: str):
+    """``"none"`` keeps every activation; ``"full"`` keeps the unit's
+    inputs and recomputes the rest in the backward; ``"dots"`` also keeps
+    the matrix products' outputs.  All three give the same gradients."""
+    if policy == "none":
+        return fn
+    if policy == "full":
+        return functools.partial(ckpt_util.checkpoint, fn,
+                                 use_reentrant=False)
+    if policy == "dots":
+        return functools.partial(
+            ckpt_util.checkpoint, fn, use_reentrant=False,
+            context_fn=functools.partial(
+                ckpt_util.create_selective_checkpoint_contexts,
+                _dots_policy))
+    raise ValueError(f"remat {policy!r}: expected 'none', 'dots' or 'full'")
+
+
 def backbone(cfg: ArchConfig, params, x: torch.Tensor,
              positions: torch.Tensor, compute_dtype=torch.bfloat16,
-             impl: str = "kernel") -> torch.Tensor:
+             impl: str = "kernel", remat: str = "full") -> torch.Tensor:
     """Layer stack -> final norm.  x: (B,S,d) embeddings.  (The JAX
     function also returns the MoE auxiliary losses, which these families
-    do not have.)"""
+    do not have.)  ``remat`` applies per layer (dense, ssm) or per group
+    of a shared block and its Mamba2 layers (hybrid), as the JAX scan."""
     _check_family(cfg)
-    layers = params["layers"]
+    layers = _unstack(params["layers"], cfg.n_layers)
     if cfg.family == "dense":
-        for i in range(cfg.n_layers):
-            x = _transformer_layer(cfg, _index(layers, i), x, positions,
-                                   compute_dtype, impl)
+        body = _remat(functools.partial(_transformer_layer, cfg), remat)
+        for lp in layers:
+            x = body(lp, x, positions, compute_dtype, impl)
     elif cfg.family == "ssm":
-        for i in range(cfg.n_layers):
-            x = _mamba_layer(cfg, _index(layers, i), x, compute_dtype, impl)
+        body = _remat(functools.partial(_mamba_layer, cfg), remat)
+        for lp in layers:
+            x = body(lp, x, compute_dtype, impl)
     else:   # hybrid: the shared block first, then `every` Mamba2 layers
         every = cfg.hybrid_every
+        shared = _unstack(params["shared_blocks"], cfg.n_shared_blocks)
+
+        def group(sp, glayers, h):
+            h = _transformer_layer(cfg, sp, h, positions, compute_dtype, impl)
+            for lp in glayers:
+                h = _mamba_layer(cfg, lp, h, compute_dtype, impl)
+            return h
+
+        body = _remat(group, remat)
         for gi in range(cfg.n_layers // every):
-            sp = _index(params["shared_blocks"], gi % cfg.n_shared_blocks)
-            x = _transformer_layer(cfg, sp, x, positions, compute_dtype,
-                                   impl)
-            for j in range(every):
-                x = _mamba_layer(cfg, _index(layers, gi * every + j), x,
-                                 compute_dtype, impl)
+            x = body(shared[gi % cfg.n_shared_blocks],
+                     layers[gi * every:(gi + 1) * every], x)
     return L.rms_norm(x, params["final_norm"])
 
 
@@ -329,6 +373,41 @@ def prefill(cfg: ArchConfig, params, batch, compute_dtype=torch.bfloat16,
     tokens = torch.as_tensor(batch["tokens"], device=dev)
     x, positions, _ = embed_inputs(cfg, params, {"tokens": tokens},
                                    compute_dtype)
-    x = backbone(cfg, params, x, positions, compute_dtype, impl)
+    x = backbone(cfg, params, x, positions, compute_dtype, impl, remat="none")
     return mask_vocab_pad(
         cfg, L.unembed_logits(params["head"], x[:, -1:], compute_dtype))
+
+
+# -- training forward ------------------------------------------------------------------
+
+def loss_fn(cfg: ArchConfig, params, batch, compute_dtype=torch.bfloat16,
+            impl: str = "ref", remat: str = "full",
+            moe_impl: str = "gshard"):
+    """Masked next-token cross-entropy: returns (loss, metrics).  ``batch``
+    holds ``tokens`` and ``targets`` (B,S), tensors on the parameters'
+    device or numpy.  Logits are f32 and the padded vocab entries are
+    masked before the log-sum-exp, as in the JAX function.  These families
+    have no MoE auxiliary losses: the metrics carry them as zeros, so the
+    total is the loss; ``moe_impl`` matters only for the moe family, which
+    is not ported."""
+    _check_family(cfg)
+    if moe_impl != "gshard":
+        raise NotImplementedError(
+            f"moe_impl {moe_impl!r}: the moe family is not ported to "
+            f"PyTorch yet (see ROADMAP.md)")
+    dev = params["final_norm"].device
+    tokens = torch.as_tensor(batch["tokens"], device=dev)
+    targets = torch.as_tensor(batch["targets"], device=dev)
+    x, positions, mask = embed_inputs(cfg, params, {"tokens": tokens},
+                                      compute_dtype)
+    x = backbone(cfg, params, x, positions, compute_dtype, impl, remat)
+    logits = mask_vocab_pad(
+        cfg, L.unembed_logits(params["head"], x, compute_dtype))   # f32
+    lse = torch.logsumexp(logits, dim=-1)
+    tgt = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
+    nll = (lse - tgt) * mask
+    loss = nll.sum() / torch.clamp(mask.sum(), min=1.0)
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    metrics = {"loss": loss, "lb_loss": zero, "z_loss": zero,
+               "frac_dropped": zero}
+    return loss, metrics

@@ -1,0 +1,158 @@
+"""The train step on one device: mixed precision, remat, gradient
+accumulation over microbatches, cross-pod gradient compression, AdamW.
+The port of `repro.train.train_step` without the mesh.
+
+`build_train_step(cfg, hyper)` returns ``step_fn(state, batch) -> (state,
+metrics)``.  Gradients come from `torch.autograd` through `lm.loss_fn`
+(with ``hyper.impl`` "ref": the kernels have no backward); microbatches
+run one after another and their f32 gradients are summed, then averaged,
+as the JAX `_accum_loop` scan does.  The step is functional like the JAX
+one: it returns a new state and leaves the given one as it was.
+
+The mesh half of the JAX module (`arch_rules`, `batch_specs`,
+`state_shardings`, the `jit_*` functions, the ``sequence_parallel`` knob)
+waits for the multi-card slice (ROADMAP.md).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, NamedTuple, Tuple
+
+import numpy as np
+import torch
+
+import repro_torch
+from repro_torch._tree import tree_leaves, tree_map, tree_unflatten_like
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models import lm
+from repro_torch.optim import adamw, grad_compress
+
+__all__ = ["TrainHyper", "TrainState", "make_train_state",
+           "abstract_train_state", "build_train_step",
+           "train_state_from_numpy"]
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainHyper:
+    adamw: adamw.AdamWConfig = dataclasses.field(
+        default_factory=adamw.AdamWConfig)
+    microbatches: int = 1
+    remat: str = "full"           # "none" | "dots" | "full"
+    compute_dtype: Any = torch.bfloat16
+    compress_cross_pod: bool = False
+    impl: str = "ref"             # kernel backend ("kernel" has no backward)
+    cast_params_once: bool = False   # cast f32 matrices to compute_dtype
+                                     # once per step, before the layers
+    moe_impl: str = "gshard"
+
+
+class TrainState(NamedTuple):
+    params: Any
+    opt: adamw.AdamWState
+    ef: Any                        # error-feedback buffers (or None)
+
+
+def make_train_state(cfg: ArchConfig, hyper: TrainHyper, gen,
+                     device=None) -> TrainState:
+    """Fresh parameters from ``gen`` (a ``torch.Generator`` on ``device``
+    or an int seed), zero moments, zero error buffers where compression is
+    on.  ``device`` None means the card."""
+    params = lm.init_params(cfg, gen, device=device)
+    return TrainState(params=params, opt=adamw.init_state(params),
+                      ef=(grad_compress.init_error_state(params)
+                          if hyper.compress_cross_pod else None))
+
+
+def abstract_train_state(cfg: ArchConfig, hyper: TrainHyper,
+                         device=None) -> TrainState:
+    """The state's structure, shapes and dtypes as "meta" tensors (the
+    target of `checkpoint.ckpt.restore`).  It is built on ``device`` once
+    and dropped there, so no memory stays in use."""
+    state = make_train_state(cfg, hyper, 0, device=device)
+    return tree_map(lambda t: torch.empty_like(t, device="meta"), state)
+
+
+def train_state_from_numpy(tree, device) -> TrainState:
+    """A JAX `TrainState` as numpy (``jax.tree_util.tree_map(np.asarray,
+    state)``: ``params``, ``opt.step``/``mu``/``nu``, ``ef``) as the port's
+    state on ``device``, dtypes kept."""
+    dev = repro_torch.resolve_device(device)
+    opt = tree.opt
+    return TrainState(
+        params=lm.params_from_numpy(tree.params, dev),
+        opt=adamw.AdamWState(
+            step=torch.as_tensor(np.array(opt.step), device=dev),
+            mu=lm.params_from_numpy(opt.mu, dev),
+            nu=lm.params_from_numpy(opt.nu, dev)),
+        ef=(None if tree.ef is None
+            else lm.params_from_numpy(tree.ef, dev)))
+
+
+def _value_and_grad(loss_of, params, batch):
+    """(gradient tree, metrics) of ``loss_of(params, batch)``: every
+    floating leaf of ``params`` requires grad."""
+    loss, metrics = loss_of(params, batch)
+    leaves = tree_leaves(params)
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    grads = [torch.zeros_like(p) if g is None else g
+             for p, g in zip(leaves, grads)]
+    return tree_unflatten_like(params, grads), {
+        k: v.detach() for k, v in metrics.items()}
+
+
+def build_train_step(cfg: ArchConfig, hyper: TrainHyper):
+    """Returns ``step_fn(state, batch) -> (state, metrics)``; ``batch``
+    holds ``tokens`` and ``targets`` (B,S) tensors on the state's device,
+    B a multiple of ``hyper.microbatches``."""
+    nm = hyper.microbatches
+
+    def loss_of(p, mb):
+        if hyper.cast_params_once:
+            p = tree_map(lambda a: a.to(hyper.compute_dtype)
+                         if (a.dtype == torch.float32 and a.dim() >= 2)
+                         else a, p)
+        return lm.loss_fn(cfg, p, mb, compute_dtype=hyper.compute_dtype,
+                          impl=hyper.impl, remat=hyper.remat,
+                          moe_impl=hyper.moe_impl)
+
+    def step_fn(state: TrainState, batch) -> Tuple[TrainState, Dict]:
+        params = tree_map(lambda t: t.detach().requires_grad_(), state.params)
+        if nm == 1:
+            grads, metrics = _value_and_grad(loss_of, params, batch)
+        else:
+            b = next(iter(batch.values())).shape[0]
+            if b % nm:
+                raise ValueError(f"batch {b} does not split into {nm} "
+                                 f"microbatches")
+            mbatch = {k: v.reshape((nm, v.shape[0] // nm) + v.shape[1:])
+                      for k, v in batch.items()}
+            zero = tree_map(lambda p: torch.zeros(
+                p.shape, dtype=torch.float32, device=p.device), params)
+            grads, metrics = _accum_loop(loss_of, params, mbatch, zero)
+            grads = tree_map(lambda g: g / nm, grads)
+
+        ef = state.ef
+        if hyper.compress_cross_pod and ef is not None:
+            grads, ef = grad_compress.compress_grads(grads, ef)
+
+        with torch.no_grad():
+            new_params, opt, opt_metrics = adamw.apply_updates(
+                hyper.adamw, state.params, grads, state.opt)
+        return TrainState(new_params, opt, ef), {**metrics, **opt_metrics}
+
+    return step_fn
+
+
+def _accum_loop(loss_of, params, mbatch, zero):
+    """Microbatches in order, summing f32 gradients into ``zero`` (in
+    place: it is the step's own buffer) and averaging the metrics."""
+    n = next(iter(mbatch.values())).shape[0]
+    g_acc, ms = zero, []
+    for i in range(n):
+        g, m = _value_and_grad(loss_of, params,
+                               {k: v[i] for k, v in mbatch.items()})
+        tree_map(lambda a, b: a.add_(b.float()), g_acc, g)
+        ms.append(m)
+    metrics = {k: torch.stack([m[k] for m in ms]).mean() for k in ms[0]}
+    return g_acc, metrics

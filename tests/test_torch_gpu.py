@@ -226,3 +226,72 @@ def test_reduced_prefill_on_the_card_runs_the_kernels(arch):
     want = lm.prefill(cfg, params, {"tokens": tokens}, torch.float32,
                       "ref")
     torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+
+
+# -- the triad and the training path (third slice) ------------------------------------
+
+@pytest.mark.parametrize("rows", [512, 1024, 64, 43688])
+def test_triad_kernel_matches_plain_bit_for_bit(rows):
+    """tests/test_kernels.py:236's shapes and the monitor's 64 MiB probe
+    (43,688 rows, not a multiple of the Pallas block)."""
+    dev = _card()
+    a = _randn(dev, (rows, 128), 20)
+    b = _randn(dev, (rows, 128), 21)
+    s = torch.tensor([1.0 / 3.0], device=dev)
+    n0 = _build.LAUNCHES["triad"]
+    got = probe_ops.probe_triad(a, b, s)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["triad"] == n0 + 1
+    assert torch.equal(got, probe_ref.triad_ref(a, b, s))
+
+
+def test_triad_kernel_ragged_and_misaligned():
+    """Element counts that are not a multiple of 4, and pointers off the
+    16-byte grid, take the scalar path: still equal bit for bit."""
+    dev = _card()
+    flat = _randn(dev, (3 * 4100,), 22)
+    s = torch.tensor([-2.5], device=dev)
+    for lo in (0, 1):              # 16-byte aligned, then off that grid
+        a, b = flat[lo:lo + 4099], flat[4100 + lo:8199 + lo]
+        assert torch.equal(probe_ops.probe_triad(a, b, s),
+                           probe_ref.triad_ref(a, b, s))
+
+
+def test_measure_bandwidth_and_monitor_launch_the_triad():
+    from repro_torch.tpuprobe.monitor import PodMonitor
+    _card()
+    _build.reset_counters()
+    bw, dt = probe_ops.measure_hbm_bandwidth(64 * (1 << 20), reps=3)
+    assert 0 < dt < 1e-4          # device time: no host enqueue inside
+    assert _build.LAUNCHES["triad"] == 3 and not _build.PLAIN_CALLS
+    mon = PodMonitor(2)
+    _build.reset_counters()
+    samples = mon.probe_once()
+    assert _build.LAUNCHES["triad"] == 2 and not _build.PLAIN_CALLS
+    assert all(s.effective_bw > 0 and s.slowdown >= 1.0 for s in samples)
+
+
+def test_reduced_training_on_the_card(tmp_path):
+    """Trainer.run of reduced qwen1.5-0.5b on the card with the real
+    monitor: finite losses, one triad launch per step, the plan recorded,
+    and the LM kernels refuse gradients there too."""
+    from repro_torch.configs.base import ShapeSpec, get_config, reduced_config
+    from repro_torch.models import attention, lm
+    from repro_torch.tpuprobe.monitor import PodMonitor
+    from repro_torch.train import train_step as ts
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    dev = _card()
+    cfg = reduced_config(get_config("qwen1p5_0p5b"))
+    tr = Trainer(cfg, ShapeSpec("s", 64, 8, "train"),
+                 ts.TrainHyper(microbatches=2),
+                 TrainerConfig(ckpt_dir=str(tmp_path)), monitor=PodMonitor(1))
+    _build.reset_counters()
+    log = tr.run(4)
+    assert _build.LAUNCHES["triad"] == 4 and not _build.PLAIN_CALLS
+    assert all(np.isfinite(r["loss"]) and r["mb_plan"] == [2] for r in log)
+    acfg = lm.attn_config(cfg)
+    params = attention.init_attention(torch.Generator(device=dev), acfg)
+    x = torch.randn((1, 16, cfg.d_model), device=dev, requires_grad=True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        attention.attention_train(params, acfg, x, torch.arange(
+            16, device=dev)[None], torch.float32, impl="kernel")

@@ -29,6 +29,14 @@ def test_port_imports_neither_jax_nor_repro():
             "import repro_torch.configs.base, repro_torch.configs.zamba2_2p7b\n"
             "import repro_torch.models.lm, repro_torch.serve.engine\n"
             "import repro_torch.launch.serve\n"
+            "import repro_torch.launch.mesh, repro_torch.launch.train\n"
+            "import repro_torch.tpuprobe.monitor\n"
+            "import repro_torch.distributed.rebalance\n"
+            "import repro_torch.distributed.sharding\n"
+            "import repro_torch.data.pipeline\n"
+            "import repro_torch.optim.adamw, repro_torch.optim.grad_compress\n"
+            "import repro_torch.checkpoint.ckpt\n"
+            "import repro_torch.train.train_step, repro_torch.train.trainer\n"
             "from repro_torch.configs.base import ARCH_IDS, get_config\n"
             "[get_config(a) for a in ARCH_IDS]\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
@@ -48,10 +56,13 @@ def test_public_surface_is_a_subset_of_the_jax_package():
         assert hasattr(tcore, name), name
 
 
-# the port's names beyond the JAX package's: the weight/cache carriers and
-# the plain version of the SSD kernel's own function
+# the port's names beyond the JAX package's: the weight/cache/state
+# carriers, the plain version of the SSD kernel's own function and the
+# triad's device timing
 EXTRA = {"repro_torch.models.lm": {"params_from_numpy", "caches_from_numpy"},
-         "repro_torch.kernels.ssd_scan.ref": {"ssd_scan_grid_ref"}}
+         "repro_torch.kernels.ssd_scan.ref": {"ssd_scan_grid_ref"},
+         "repro_torch.kernels.cache_probe.kernel": {"triad_device_seconds"},
+         "repro_torch.train.train_step": {"train_state_from_numpy"}}
 
 
 @pytest.mark.parametrize("name", [
@@ -60,7 +71,12 @@ EXTRA = {"repro_torch.models.lm": {"params_from_numpy", "caches_from_numpy"},
     "kernels.flash_attention.ref",
     "kernels.flash_attention.kernel", "kernels.flash_attention.ops",
     "kernels.ssd_scan.ref", "kernels.ssd_scan.kernel",
-    "kernels.ssd_scan.ops"])
+    "kernels.ssd_scan.ops",
+    "kernels.cache_probe.ref", "kernels.cache_probe.kernel",
+    "kernels.cache_probe.ops", "launch.mesh", "tpuprobe.monitor",
+    "distributed.rebalance", "distributed.sharding", "data.pipeline",
+    "optim.adamw", "optim.grad_compress", "checkpoint.ckpt",
+    "train.train_step", "train.trainer", "launch.train"])
 def test_lm_modules_public_names_are_the_jax_modules(name):
     import importlib
     import inspect
@@ -100,6 +116,44 @@ def test_serving_entry_points_default_to_the_card():
     assert lm.prefill(cfg, params, {"tokens": tokens},
                       device="cpu").shape == (1, 1, cfg.vocab_padded)
     ServeEngine(cfg, params, device="cpu")
+
+
+def test_training_entry_points_default_to_the_card(tmp_path):
+    """Trainer, PodMonitor(clock=None), measure_hbm_bandwidth, the train
+    state, restore and the train CLI run on the card unless asked for the
+    CPU; without one they raise."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the entry points would run")
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.configs.base import (ShapeSpec, get_config,
+                                          reduced_config)
+    from repro_torch.kernels.cache_probe import ops
+    from repro_torch.launch import train
+    from repro_torch.tpuprobe.monitor import PodMonitor, SimClock
+    from repro_torch.train import train_step as ts
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    cfg = reduced_config(get_config("qwen1p5_0p5b"))
+    shape = ShapeSpec("s", 32, 4, "train")
+    tcfg = TrainerConfig(ckpt_dir=str(tmp_path))
+    hyper = ts.TrainHyper()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Trainer(cfg, shape, hyper, tcfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        PodMonitor(1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ops.measure_hbm_bandwidth(3 * (1 << 18), reps=1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ts.make_train_state(cfg, hyper, 0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ckpt.restore(str(tmp_path), 0, {})
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train.main(["--reduced", "--steps", "1", "--ckpt", str(tmp_path)])
+    # a SimClock monitor probes no device; asked for the CPU, all run
+    PodMonitor(1, clock=SimClock(lambda d, t: 1.0)).probe_once()
+    PodMonitor(1, device="cpu", probe_bytes=1 << 20).probe_once()
+    ops.measure_hbm_bandwidth(3 * (1 << 18), reps=1, device="cpu")
+    log = Trainer(cfg, shape, hyper, tcfg, device="cpu").run(1)
+    assert log[0]["step"] == 1 and np.isfinite(log[0]["loss"])
 
 
 def test_serve_cli_defaults_to_the_card():
