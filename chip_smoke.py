@@ -18,11 +18,13 @@ Four phases, in order; any failure exits non-zero:
              geometries; `flash_attention` against `attention_ref` and
              `ssd_scan` against its plain version and the model's
              `ssd_chunked_ref` (within stated tolerances) at the shapes of
-             tests/test_kernels.py, a ragged head-dim-80 case and the
-             zamba2-2.7b / mamba2-2.7b prefill shapes; `triad` against
-             `triad_ref` (bit for bit) at the shapes of
-             tests/test_kernels.py, the monitor's 64 MiB probe (43,688
-             rows) and 1 GiB;
+             tests/test_kernels.py, a ragged head-dim-80 case, head dims
+             40 and 96, Sq != Sk, a GQA group of 8, (B, S, H, D) views
+             whose strides are off the 16-byte grid, one chunk, chunks of
+             96, p = 32 with n = 128 and the zamba2-2.7b / mamba2-2.7b
+             prefill shapes; `triad` against `triad_ref` (bit for bit) at
+             the shapes of tests/test_kernels.py, the monitor's 64 MiB
+             probe (43,688 rows) and 1 GiB;
 3. main    — three paths, each with the launch counters set to 0 just
              before it and read just after:
              (i) `run_cachex("skylake_sp")`: the report must equal
@@ -34,15 +36,17 @@ Four phases, in order; any failure exits non-zero:
              (ii) serving zamba2-2.7b at full width and depth (54 layers,
              d_model 2560, f32 weights from a seeded torch.Generator on the
              card): `lm.prefill` of 2 x 2048 tokens in f32 and in bf16,
-             each with 9 `flash_attention` and 54 `ssd_scan` launches and
-             no plain call, held against `impl="ref"`; then `ServeEngine`
-             answers 6 requests of 256-token prompts (two waves of 4 slots,
-             8 new tokens each) in f32, its first tokens held against the
-             kernel prefill's argmax, and again in bf16;
+             each with 9 `flash_attention` launches, 54 `ssd_scan` calls
+             of 4 launches each and no plain call, held against
+             `impl="ref"`; then `ServeEngine` answers 6 requests of
+             256-token prompts (two waves of 4 slots, 8 new tokens each)
+             in f32, its first tokens held against the kernel prefill's
+             argmax, and again in bf16;
              (iii) training qwen1.5-0.5b at full width and depth (24
              layers, d_model 1024, vocab 151,936; f32 weights from a seeded
-             torch.Generator on the card): `Trainer.run` for 5 steps of
-             8 x 2048 tokens in 2 microbatches, bf16 compute, remat
+             torch.Generator on the card), which must start with at most
+             1 GiB left allocated by the phases before it: `Trainer.run`
+             for 5 steps of 8 x 2048 tokens in 2 microbatches, bf16, remat
              "full", with `PodMonitor(1)` timing the `triad` kernel
              between steps; finite losses, the first near ln(vocab), one
              triad launch per probe and no plain triad, a plan every step,
@@ -54,8 +58,8 @@ Four phases, in order; any failure exits non-zero:
 4. times   — times each kernel with CUDA events at the main path's shapes
              beside its plain version, its bound and the PyTorch library
              call where one exists (the triad also at 256 MiB and 1 GiB,
-             and from a cold L2), and prints one `{"kernels": [...]}`
-             line.
+             and from a cold L2; the SSD's four stages by torch.profiler),
+             and prints one `{"kernels": [...]}` line.
 
 The line before the last is `nvidia-smi`'s name and power limit of the
 card; the last line is `{"ok": true, "device": {...}}`.  Without a CUDA
@@ -66,6 +70,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -546,6 +551,11 @@ class Smoke:
             (1, 384, 384, 6, 2, 64, True),
             (1, 200, 200, 4, 2, 80, True),    # ragged S, zamba2's head dim
             (2, 200, 200, 4, 4, 80, False),
+            (1, 256, 256, 4, 2, 40, True),    # head dims padded in shared
+            (2, 192, 192, 2, 2, 96, True),    # memory: 40 -> 48, 96
+            (1, 128, 384, 4, 2, 64, True),    # Sq != Sk
+            (1, 128, 384, 4, 2, 64, False),
+            (2, 256, 256, 16, 2, 64, True),   # a GQA group of 8
             (*ZAMBA_ATTN, True)]              # the zamba2 prefill shape
         for i, (B, Sq, Sk, Hq, Hkv, D, causal) in enumerate(cases):
             for dtype in (torch.float32, torch.bfloat16):
@@ -568,6 +578,22 @@ class Smoke:
                            out.transpose(1, 2),
                            ref.attention_ref(q, k, v, causal),
                            **FA_TOL[name], tag=tag)
+        # (B, S, H, D) views of wider rows: sequence and head strides off
+        # the 16-byte grid, so the kernel's loader copies element by
+        # element instead of 16 bytes at a time
+        B, S, H = 2, 160, 3
+        for j, (D, causal) in enumerate(((64, True), (80, False))):
+            for dtype in (torch.float32, torch.bfloat16):
+                name = str(dtype)[6:]
+                qkv = [self.randn((B, S, H, D + 1), 100 + 3 * j + u,
+                                  dtype)[..., :D] for u in range(3)]
+                self.close("flash_attention",
+                           f"({B},{S},{H},{D}) view, seq stride "
+                           f"{qkv[0].stride(1)} causal={causal} {name}",
+                           ops.flash_attention(*qkv, causal).transpose(1, 2),
+                           ref.attention_ref(*(t.transpose(1, 2)
+                                               for t in qkv), causal),
+                           **FA_TOL[name], tag=name)
 
     def check_ssd_scan(self):
         from repro_torch.kernels.ssd_scan import kernel, ops, ref
@@ -578,6 +604,9 @@ class Smoke:
             (2, 256, 8, 64, 32, 64, SSD_TOL),
             (1, 256, 8, 64, 128, 128, SSD_TOL),
             (2, 64, 2, 32, 16, 64, SSD_TOL),
+            (2, 128, 4, 64, 64, 128, SSD_TOL),    # one chunk
+            (1, 384, 8, 64, 64, 96, SSD_TOL),     # chunks of 96
+            (2, 512, 8, 32, 128, 128, SSD_TOL),   # p = 32 with n = 128
             (2, 2048, 80, 64, 64, 128, SSD_TOL_FULL),   # zamba2-2.7b
             (2, 2048, 80, 64, 128, 128, SSD_TOL_FULL)]  # mamba2-2.7b
         for i, (b, S, h, p, n, chunk, tol) in enumerate(cases):
@@ -750,9 +779,10 @@ def engine_bytes(geom, l2_rows: int, llc_rows: int, steps: int, lanes: int,
 SERVE_ARCH = "zamba2_2p7b"
 PREFILL_B, PREFILL_S = 2, 2048
 SERVE_REQUESTS, SERVE_PROMPT, SERVE_NEW, SERVE_SLOTS = 6, 256, 8, 4
-# launches of one zamba2-2.7b prefill: 54 // 6 = 9 shared attention blocks,
-# 54 Mamba2 layers
-PREFILL_LAUNCHES = {"flash_attention": 9, "ssd_scan": 54}
+# kernel calls of one zamba2-2.7b prefill: 54 // 6 = 9 shared attention
+# blocks, 54 Mamba2 layers (each `ssd_scan` call is
+# `ssd_scan.kernel.LAUNCHES_PER_CALL` launches)
+PREFILL_CALLS = {"flash_attention": 9, "ssd_scan": 54}
 # Logits, kernel prefill vs `impl="ref"` prefill on the card.  f32: two
 # implementations of attention and of the SSD scan whose sums differ in
 # order (about 1e-6 relative each); 63 residual blocks carry that into
@@ -851,9 +881,12 @@ def serve_main_path(smoke, card):
     torch = smoke.torch
     from repro_torch import _build
     from repro_torch.configs.base import get_config
+    from repro_torch.kernels.ssd_scan.kernel import LAUNCHES_PER_CALL
     from repro_torch.models import lm
     from repro_torch.serve.engine import Request, ServeEngine
     cfg = get_config(SERVE_ARCH)
+    expected = {"flash_attention": PREFILL_CALLS["flash_attention"],
+                "ssd_scan": PREFILL_CALLS["ssd_scan"] * LAUNCHES_PER_CALL}
     t0 = time.perf_counter()
     params = lm.init_params(
         cfg, torch.Generator(device=smoke.dev).manual_seed(0),
@@ -880,10 +913,10 @@ def serve_main_path(smoke, card):
         smoke.sync()
         wall = time.perf_counter() - t0
         launches, plain = dict(_build.LAUNCHES), dict(_build.PLAIN_CALLS)
-        if launches != PREFILL_LAUNCHES or plain:
+        if launches != expected or plain:
             raise AssertionError(f"prefill {name}: launches {launches}, "
                                  f"plain calls {plain}; expected "
-                                 f"{PREFILL_LAUNCHES} and none")
+                                 f"{expected} and none")
         t0 = time.perf_counter()
         lr = lm.prefill(cfg, params, batch, dtype, "ref",
                         device=smoke.dev)
@@ -943,7 +976,7 @@ def serve_main_path(smoke, card):
     pre = lm.prefill(cfg, params, {"tokens": prompts}, torch.float32,
                      "kernel", device=smoke.dev)[:, 0]
     smoke.sync()
-    if dict(_build.LAUNCHES) != PREFILL_LAUNCHES or _build.PLAIN_CALLS:
+    if dict(_build.LAUNCHES) != expected or _build.PLAIN_CALLS:
         raise AssertionError(f"prompt prefill launches "
                              f"{dict(_build.LAUNCHES)}")
     top2 = pre.topk(2, dim=-1).values
@@ -1018,6 +1051,13 @@ def serve_main_path(smoke, card):
               f"{sum(agree)}/{SERVE_REQUESTS} (top-2 margins "
               f"{np.round(margin, 3).tolist()}); max |decode - prefill| "
               f"logit {diff:.3g} on {card}")
+        # the capture held the engine's bound decode, and the engine held
+        # the capture: drop the cycle so the weights go with the engine
+        del eng._decode
+        del eng, capture, decode, first, finite, dec
+    del params, tokens, batch, lk, lr, f32_logits, pre, top2
+    gc.collect()
+    torch.cuda.empty_cache()
     return res
 
 
@@ -1035,6 +1075,9 @@ ACCUM_RTOL = 2e-3
 # Restart vs continuous run under deterministic algorithms: the same
 # computation in the same order, so equal; 1e-5 as in the CPU test.
 RESTART_RTOL = 1e-5
+# What earlier phases may leave allocated when training starts: their
+# small tensors, not the serving phase's 9.4 GiB of zamba2 weights.
+TRAIN_START_MAX_BYTES = 1 << 30
 
 
 def matmul_params(cfg):
@@ -1088,6 +1131,12 @@ def train_main_path(smoke, card):
     from repro_torch.tpuprobe.monitor import PodMonitor
     from repro_torch.train import train_step as ts
     from repro_torch.train.trainer import Trainer, TrainerConfig
+    start = torch.cuda.memory_allocated()
+    print(f"train: {start / 2**30:.3f} GiB allocated on the card before the "
+          f"training phase (at most {TRAIN_START_MAX_BYTES / 2**30:.0f} GiB)")
+    if start > TRAIN_START_MAX_BYTES:
+        raise AssertionError(f"train: {start / 2**30:.2f} GiB still allocated "
+                             f"from earlier phases")
     cfg = get_config(TRAIN_ARCH)
     shape = ShapeSpec("chip_smoke", TRAIN_SEQ, TRAIN_BATCH, "train")
     hyper = ts.TrainHyper(microbatches=TRAIN_MICRO, remat="full",
@@ -1502,6 +1551,8 @@ def lm_kernel_rows(smoke, card, launches):
                   + b * h * p * n)
     t_ops, t_bytes = flops / ALU_OPS_PER_S * 1e3, \
         nbytes / HBM_BYTES_PER_S * 1e3
+    stages = ssd_stage_us(smoke, lambda: ssd_kernel.ssd_scan_grid(
+        x, dt, dA, Bm, Cm))
     rows.append({
         "name": "ssd_scan", "route": "cuda",
         "source": SOURCES["ssd_scan"][0], "replaces": SOURCES["ssd_scan"][1],
@@ -1516,8 +1567,28 @@ def lm_kernel_rows(smoke, card, launches):
         "bound_ms": max(t_ops, t_bytes),
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
         "library_ms": None, "flops": flops, "bytes": nbytes,
+        "stage_us": stages,
         "shape": f"({b}, {h}, {nc}, {L}, {p}), n={n}, f32", "card": card})
     return rows
+
+
+def ssd_stage_us(smoke, call, reps: int = 5):
+    """Device microseconds per launch of each of the SSD kernel's stages
+    (its four CUDA kernels, by name), from torch.profiler over ``reps``
+    calls."""
+    from torch.profiler import ProfilerActivity, profile
+    call()
+    smoke.sync()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            call()
+        smoke.sync()
+    out = {}
+    for e in prof.key_averages():
+        name = e.key.split("::")[-1].split("(")[0]
+        if str(e.device_type).endswith("CUDA") and name.startswith("ssd_"):
+            out[name] = e.self_device_time_total / e.count
+    return out
 
 
 def main() -> int:
@@ -1809,6 +1880,8 @@ def main() -> int:
               f" ms, bound {r['bound_ms']:.7f} ms by {r['bound_by']}{lib}) "
               f"at {r['shape']}, {r['launches']} launches on its path, on "
               f"{card}")
+    print(f"time ssd_scan stages (device us per launch, torch.profiler): "
+          f"{rows[4]['stage_us']} on {card}")
     for sh in rows[3]["shapes"][1:]:
         print(f"time flash_attention {sh['dtype']} {tuple(sh['shape'])}: "
               f"{sh['ms']:.4f} ms (plain {sh['plain_ms']:.2f} ms, bound "

@@ -57,7 +57,7 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
                                   + (_I, _I, _F, _P),
     },
     "ssd_scan": {
-        "ssd_scan_launch": (_P,) * 7 + (_I,) * 6 + (_P,),
+        "ssd_scan_launch": (_P,) * 10 + (_I,) * 6 + (_P,),
     },
     "triad": {
         "triad_launch": (_P,) * 4 + (_L,) + (_P,),

@@ -21,7 +21,7 @@ from repro_torch.kernels.flash_attention.ref import NEG_INF, attention_ref
 __all__ = ["NEG_INF", "flash_attention_bhsd"]
 
 #: query rows per CUDA block and the largest head dim the kernel takes
-BLOCK_Q = 64
+BLOCK_Q = 128
 MAX_HEAD_DIM = 128
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 

@@ -6,13 +6,20 @@ the kernel's chunked layout: the oracle the CUDA `ssd_scan` kernel
 reference (`models.mamba2.ssd_chunked_ref`, here
 `repro_torch.models.mamba2.ssd_chunked_ref`); this module adds the chunked
 form that the kernel computes, chunk by chunk as the Pallas grid does.
+
+It also writes out, for the tests, the four stages in which the CUDA
+kernel computes the same function (Mamba2's chunk-parallel
+decomposition): `ssd_chunk_cb`, `ssd_chunk_states`, `ssd_carry_states`
+and `ssd_chunk_outputs`, composed by `ssd_scan_stages_ref`.  No path of
+the port runs them.
 """
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["ssd_scan_grid_ref"]
+__all__ = ["ssd_scan_grid_ref", "ssd_chunk_cb", "ssd_chunk_states",
+           "ssd_carry_states", "ssd_chunk_outputs", "ssd_scan_stages_ref"]
 
 
 def ssd_scan_grid_ref(x: torch.Tensor, dt: torch.Tensor, dA: torch.Tensor,
@@ -44,3 +51,62 @@ def ssd_scan_grid_ref(x: torch.Tensor, dt: torch.Tensor, dA: torch.Tensor,
         state = state * total[..., None, None] + newst
     y = torch.stack(ys, dim=2)
     return y.to(x.dtype), state
+
+
+def ssd_chunk_cb(Bm: torch.Tensor, Cm: torch.Tensor) -> torch.Tensor:
+    """Stage 1, per (batch, chunk), shared by the heads: C . B^T,
+    (B, nc, L, n) x 2 -> (B, nc, L, L).  Only m <= l is used later."""
+    return torch.einsum("bcln,bcmn->bclm", Cm.float(), Bm.float())
+
+
+def ssd_chunk_states(x: torch.Tensor, dt: torch.Tensor, dA: torch.Tensor,
+                     Bm: torch.Tensor):
+    """Stage 2, per (batch, head, chunk): seg = cumsum(dA) over the chunk
+    (B, H, nc, L), and the chunk's own state contribution
+    sum_l exp(seg_{L-1} - seg_l) dt_l x_l B_l^T, (B, H, nc, p, n)."""
+    seg = torch.cumsum(dA.float(), dim=-1)
+    w = torch.exp(seg[..., -1:] - seg) * dt.float()
+    contrib = torch.einsum("bhclp,bcln->bhcpn", x.float() * w[..., None],
+                           Bm.float())
+    return seg, contrib
+
+
+def ssd_carry_states(seg: torch.Tensor, contrib: torch.Tensor):
+    """Stage 3, along the chunks: S_c = S_{c-1} exp(seg_{L-1,c}) +
+    contribution_c from S_{-1} = 0.  Returns the state entering each chunk
+    (B, H, nc, p, n) and the final state (B, H, p, n)."""
+    total = torch.exp(seg[..., -1])                          # (B,H,nc)
+    state = torch.zeros_like(contrib[:, :, 0])
+    entering = []
+    for c in range(contrib.shape[2]):
+        entering.append(state)
+        state = state * total[:, :, c, None, None] + contrib[:, :, c]
+    return torch.stack(entering, dim=2), state
+
+
+def ssd_chunk_outputs(x: torch.Tensor, dt: torch.Tensor, Cm: torch.Tensor,
+                      cb: torch.Tensor, seg: torch.Tensor,
+                      s_in: torch.Tensor) -> torch.Tensor:
+    """Stage 4, per (batch, head, chunk): y = (CB o decay o dt) . x +
+    exp(seg) o (C . S_in^T), the decay exp(seg_l - seg_m) taken only for
+    m <= l (masked before the exp).  Returns y (B, H, nc, L, p) in f32."""
+    L = x.shape[3]
+    tril = torch.tril(torch.ones((L, L), dtype=torch.bool, device=x.device))
+    diff = seg[..., :, None] - seg[..., None, :]             # (B,H,nc,L,L)
+    decay = torch.exp(torch.where(tril, diff, -torch.inf))
+    att = cb[:, None] * decay * dt.float()[..., None, :]
+    y_intra = torch.einsum("bhclm,bhcmp->bhclp", att, x.float())
+    y_inter = torch.einsum("bhcpn,bcln->bhclp", s_in, Cm.float())
+    return y_intra + y_inter * torch.exp(seg)[..., None]
+
+
+def ssd_scan_stages_ref(x: torch.Tensor, dt: torch.Tensor, dA: torch.Tensor,
+                        Bm: torch.Tensor, Cm: torch.Tensor):
+    """The four stages composed: the same (y, final state) as
+    `ssd_scan_grid_ref`, with the state carried across chunks only in
+    stage 3."""
+    cb = ssd_chunk_cb(Bm, Cm)
+    seg, contrib = ssd_chunk_states(x, dt, dA, Bm)
+    s_in, final = ssd_carry_states(seg, contrib)
+    y = ssd_chunk_outputs(x, dt, Cm, cb, seg, s_in)
+    return y.to(x.dtype), final

@@ -140,7 +140,13 @@ def _randn(dev, shape, seed, dtype=torch.float32, scale=1.0):
     (1, 128, 128, 2, 2, 64, True), (2, 256, 256, 4, 2, 64, True),
     (1, 256, 256, 4, 1, 128, True), (2, 128, 128, 2, 2, 128, False),
     (1, 384, 384, 6, 2, 64, True), (1, 200, 200, 4, 2, 80, True),
-    (2, 200, 200, 2, 2, 80, False), (1, 64, 130, 2, 2, 32, True)])
+    (2, 200, 200, 2, 2, 80, False), (1, 64, 130, 2, 2, 32, True),
+    # head dims padded in shared memory (40 -> 48; 96 and 72 -> 80)
+    (1, 256, 256, 4, 2, 40, True), (2, 192, 192, 2, 2, 96, False),
+    (1, 130, 130, 2, 1, 72, True), (1, 70, 70, 2, 2, 5, True),
+    # Sq != Sk both ways, causal and not; a GQA group of 8
+    (1, 128, 384, 4, 2, 64, True), (1, 128, 384, 4, 2, 64, False),
+    (1, 384, 128, 2, 2, 80, True), (2, 256, 256, 16, 2, 64, True)])
 def test_flash_attention_kernel_matches_plain(B, Sq, Sk, Hq, Hkv, D, causal,
                                               dtype):
     dev = _card()
@@ -162,6 +168,24 @@ def test_flash_attention_kernel_matches_plain(B, Sq, Sk, Hq, Hkv, D, causal,
                                rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D,causal", [(64, True), (80, False)])
+def test_flash_attention_kernel_reads_views_off_the_16_byte_grid(D, causal,
+                                                                dtype):
+    """(B, S, H, D) views of wider rows: sequence and head strides that
+    are not multiples of 8 (bf16) or 4 (f32) elements, so the kernel's
+    loader copies element by element instead of 16 bytes at a time."""
+    dev = _card()
+    B, S, H = 2, 160, 3
+    qkv = [_randn(dev, (B, S, H, D + 1), 30 + i, dtype)[..., :D]
+           for i in range(3)]
+    assert qkv[0].stride(1) % 8 != 0 and qkv[0].stride(2) % 8 != 0
+    got = fa_ops.flash_attention(*qkv, causal)
+    want = fa_ref.attention_ref(*(t.transpose(1, 2) for t in qkv), causal)
+    torch.testing.assert_close(got.transpose(1, 2).float(), want.float(),
+                               **FA_TOL[dtype])
+
+
 def test_flash_attention_kernel_refuses_what_it_cannot_take():
     dev = _card()
     q = torch.zeros(1, 2, 16, 160, device=dev)
@@ -175,7 +199,11 @@ def test_flash_attention_kernel_refuses_what_it_cannot_take():
 @pytest.mark.parametrize("b,S,h,p,n,chunk", [
     (1, 128, 4, 32, 16, 32), (2, 256, 8, 64, 32, 64),
     (1, 256, 8, 64, 128, 128), (2, 64, 2, 32, 16, 64),
-    (2, 512, 80, 64, 64, 128)])
+    (2, 512, 80, 64, 64, 128),
+    (2, 128, 4, 64, 64, 128),     # one chunk
+    (1, 384, 8, 64, 64, 96),      # chunks of 96
+    (2, 512, 8, 32, 128, 128),    # p = 32 with n = 128
+    (1, 99, 3, 7, 5, 33)])        # nothing a multiple of 4
 def test_ssd_scan_kernel_matches_plain(b, S, h, p, n, chunk):
     dev = _card()
     x = _randn(dev, (b, S, h, p), 4)
@@ -187,7 +215,7 @@ def test_ssd_scan_kernel_matches_plain(b, S, h, p, n, chunk):
     n0 = _build.LAUNCHES["ssd_scan"]
     y, st = ssd_ops.ssd_scan(x, dt, A, Bm, Cm, D, chunk=chunk)
     torch.cuda.synchronize()
-    assert _build.LAUNCHES["ssd_scan"] == n0 + 1
+    assert _build.LAUNCHES["ssd_scan"] == n0 + ssd_kernel.LAUNCHES_PER_CALL
     from repro_torch.models import mamba2
     y_r, st_r = mamba2.ssd_chunked_ref(x, dt, A, Bm, Cm, D, chunk)
     torch.testing.assert_close(y, y_r, rtol=2e-5, atol=2e-5)
@@ -222,7 +250,8 @@ def test_reduced_prefill_on_the_card_runs_the_kernels(arch):
                      "kernel")
     assert _build.PLAIN_CALLS == {}
     assert _build.LAUNCHES["ssd_scan"] == (
-        0 if cfg.family == "dense" else cfg.n_layers)
+        0 if cfg.family == "dense"
+        else cfg.n_layers * ssd_kernel.LAUNCHES_PER_CALL)
     want = lm.prefill(cfg, params, {"tokens": tokens}, torch.float32,
                       "ref")
     torch.testing.assert_close(got, want, rtol=0, atol=1e-4)

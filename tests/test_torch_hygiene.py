@@ -57,10 +57,15 @@ def test_public_surface_is_a_subset_of_the_jax_package():
 
 
 # the port's names beyond the JAX package's: the weight/cache/state
-# carriers, the plain version of the SSD kernel's own function and the
+# carriers, the plain versions of the SSD kernel's own function and of its
+# four stages, the plain emulation of the bf16 attention path and the
 # triad's device timing
 EXTRA = {"repro_torch.models.lm": {"params_from_numpy", "caches_from_numpy"},
-         "repro_torch.kernels.ssd_scan.ref": {"ssd_scan_grid_ref"},
+         "repro_torch.kernels.ssd_scan.ref": {
+             "ssd_scan_grid_ref", "ssd_chunk_cb", "ssd_chunk_states",
+             "ssd_carry_states", "ssd_chunk_outputs", "ssd_scan_stages_ref"},
+         "repro_torch.kernels.flash_attention.ref": {
+             "attention_bf16_probs_ref"},
          "repro_torch.kernels.cache_probe.kernel": {"triad_device_seconds"},
          "repro_torch.train.train_step": {"train_state_from_numpy"}}
 

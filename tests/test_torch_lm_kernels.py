@@ -11,6 +11,8 @@ import torch
 
 from repro.kernels.flash_attention import ops as jfa_ops
 from repro.kernels.flash_attention import ref as jfa_ref
+from repro.kernels.flash_attention.kernel import \
+    flash_attention_bhsd as jflash_bhsd
 from repro.kernels.ssd_scan import ops as jssd_ops
 from repro.kernels.ssd_scan.kernel import ssd_scan_grid as jssd_scan_grid
 from repro.models import attention as jattn
@@ -18,6 +20,7 @@ from repro.models import mamba2 as jm2
 from repro_torch import _build
 from repro_torch.kernels.flash_attention import kernel as fa_kernel
 from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.flash_attention import ref as fa_ref
 from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.kernels.ssd_scan import ref as ssd_ref
@@ -105,6 +108,29 @@ def test_flash_attention_matches_model_chunked_path():
     np.testing.assert_allclose(_np(b), _np(j), rtol=2e-5, atol=2e-5)
 
 
+@pytest.mark.parametrize("B,Sq,Sk,Hq,Hkv,D,causal", [
+    (1, 256, 256, 4, 2, 64, True),    # lengths the Pallas blocks divide
+    (2, 128, 128, 2, 2, 80, True),    # zamba2's head dim
+    (1, 128, 256, 4, 1, 80, False),   # Sq != Sk, bidirectional
+])
+def test_bf16_probability_rounding_stays_within_bf16_tolerance(
+        B, Sq, Sk, Hq, Hkv, D, causal):
+    """The CUDA bf16 path rounds P to bf16 before P.V, a step the Pallas
+    kernel does not take.  Its plain emulation (online softmax over key
+    tiles of 64, as the kernel) stays within the bf16 tolerance of the
+    JAX kernel in interpret mode and of the JAX reference."""
+    rng = np.random.default_rng(Sq + Sk + D + Hq)
+    arrs = [rng.standard_normal((B, h, S, D), np.float32)
+            for h, S in ((Hq, Sq), (Hkv, Sk), (Hkv, Sk))]
+    (jq, q), (jk, k), (jv, v) = (_pair(a, "bfloat16") for a in arrs)
+    got = fa_ref.attention_bf16_probs_ref(q, k, v, causal)
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    pallas = jflash_bhsd(jq, jk, jv, causal=causal, interpret=True)
+    ref = jfa_ref.attention_ref(jq, jk, jv, causal)
+    np.testing.assert_allclose(_np(got), _np(pallas), **TOL["bfloat16"])
+    np.testing.assert_allclose(_np(got), _np(ref), **TOL["bfloat16"])
+
+
 def test_flash_attention_wrapper_rejects_bad_shapes():
     q = torch.zeros(1, 3, 16, 8)
     with pytest.raises(ValueError):
@@ -156,12 +182,8 @@ def test_ssd_scan_sweep_matches_jax(b, S, h, p, n, chunk, dtype):
     np.testing.assert_allclose(_np(rst), _np(jst_r), **st_tol)
 
 
-@pytest.mark.parametrize("B,H,nc,L,p,n", [(1, 2, 3, 16, 8, 4),
-                                          (2, 3, 2, 32, 16, 16)])
-def test_ssd_scan_grid_ref_matches_pallas_grid(B, H, nc, L, p, n):
-    """The plain version of the kernel's own function, in the chunked
-    layout, against the Pallas `ssd_scan_grid` in interpret mode."""
-    rng = np.random.default_rng(B + H + nc + L)
+def _grid_inputs(B, H, nc, L, p, n, seed):
+    rng = np.random.default_rng(seed)
     x = rng.standard_normal((B, H, nc, L, p), np.float32)
     dt = np.log1p(np.exp(rng.standard_normal((B, H, nc, L)))).astype(
         np.float32)
@@ -169,7 +191,16 @@ def test_ssd_scan_grid_ref_matches_pallas_grid(B, H, nc, L, p, n):
         np.float32)
     Bm = (rng.standard_normal((B, nc, L, n)) * 0.3).astype(np.float32)
     Cm = (rng.standard_normal((B, nc, L, n)) * 0.3).astype(np.float32)
-    pairs = [_pair(a) for a in (x, dt, dA, Bm, Cm)]
+    return x, dt, dA, Bm, Cm
+
+
+@pytest.mark.parametrize("B,H,nc,L,p,n", [(1, 2, 3, 16, 8, 4),
+                                          (2, 3, 2, 32, 16, 16)])
+def test_ssd_scan_grid_ref_matches_pallas_grid(B, H, nc, L, p, n):
+    """The plain version of the kernel's own function, in the chunked
+    layout, against the Pallas `ssd_scan_grid` in interpret mode."""
+    pairs = [_pair(a) for a in _grid_inputs(B, H, nc, L, p, n,
+                                            seed=B + H + nc + L)]
     jy, jst = jssd_scan_grid(*(j for j, _ in pairs), block_h=1,
                              interpret=True)
     y, st = ssd_ref.ssd_scan_grid_ref(*(t for _, t in pairs))
@@ -178,6 +209,40 @@ def test_ssd_scan_grid_ref_matches_pallas_grid(B, H, nc, L, p, n):
         np.testing.assert_allclose(_np(got_y), _np(jy), rtol=2e-5, atol=2e-5)
         np.testing.assert_allclose(_np(got_st), _np(jst), rtol=2e-5,
                                    atol=2e-5)
+
+
+@pytest.mark.parametrize("B,H,nc,L,p,n", [
+    (1, 4, 4, 32, 32, 16),     # the sweep of test_ssd_scan_sweep_matches_jax
+    (2, 8, 4, 64, 64, 32),     # in the chunked layout
+    (1, 8, 2, 128, 64, 128),
+    (2, 2, 1, 64, 32, 16),     # one chunk
+    (1, 2, 3, 16, 8, 4),       # test_ssd_scan_grid_ref_matches_pallas_grid
+    (2, 3, 2, 32, 16, 16),
+    (1, 2, 3, 96, 32, 128),    # chunks of 96, p = 32 with n = 128
+])
+def test_ssd_stages_compose_to_the_pallas_grid(B, H, nc, L, p, n):
+    """The CUDA kernel's chunk-parallel decomposition, written out as four
+    plain stages (C.B^T per chunk; seg and each chunk's own state; the
+    carry across chunks; y), composes to the Pallas `ssd_scan_grid` in
+    interpret mode: the state-passing algebra, checked on the CPU."""
+    pairs = [_pair(a) for a in _grid_inputs(B, H, nc, L, p, n,
+                                            seed=B + H + nc + L + n)]
+    jy, jst = jssd_scan_grid(*(j for j, _ in pairs), block_h=1,
+                             interpret=True)
+    x, dt, dA, Bm, Cm = (t for _, t in pairs)
+    y, st = ssd_ref.ssd_scan_stages_ref(x, dt, dA, Bm, Cm)
+    np.testing.assert_allclose(_np(y), _np(jy), **TOL["float32"])
+    np.testing.assert_allclose(_np(st), _np(jst), **TOL["float32"])
+    # the state entering chunk c is the grid's state after chunk c - 1
+    seg, contrib = ssd_ref.ssd_chunk_states(x, dt, dA, Bm)
+    s_in, final = ssd_ref.ssd_carry_states(seg, contrib)
+    assert torch.equal(s_in[:, :, 0], torch.zeros_like(final))
+    if nc > 1:
+        _, st_prefix = ssd_ref.ssd_scan_grid_ref(
+            x[:, :, :-1], dt[:, :, :-1], dA[:, :, :-1], Bm[:, :-1],
+            Cm[:, :-1])
+        np.testing.assert_allclose(_np(s_in[:, :, -1]), _np(st_prefix),
+                                   **TOL["float32"])
 
 
 def test_ssd_state_equals_stepwise_decode():
