@@ -14,8 +14,12 @@ Four phases, in order; any failure exits non-zero:
              against the engine's batched lanes on a single-level geometry;
              the engine (bit for bit) at all four entry points, under lru
              and random replacement, inclusive and non-inclusive
-             hierarchies, on the skylake_sp and the paper's Table 1
-             geometries; `flash_attention` against `attention_ref` and
+             hierarchies, on the six registered platforms and the paper's
+             Table 1 geometry, each through the design
+             `cachesim._engine_plan` picks (state in shared memory, or
+             rows copied on first touch), and on skylake_sp once more
+             through the forced copy-on-touch design; `flash_attention`
+             against `attention_ref` and
              `ssd_scan` against its plain version and the model's
              `ssd_chunked_ref` (within stated tolerances) at the shapes of
              tests/test_kernels.py, a ragged head-dim-80 case, head dims
@@ -57,9 +61,11 @@ Four phases, in order; any failure exits non-zero:
              microbatches, grad_norm within rel 2e-3);
 4. times   — times each kernel with CUDA events at the main path's shapes
              beside its plain version, its bound and the PyTorch library
-             call where one exists (the triad also at 256 MiB and 1 GiB,
-             and from a cold L2; the SSD's four stages by torch.profiler),
-             and prints one `{"kernels": [...]}` line.
+             call where one exists (the engine also at the Table 1
+             geometry, with its design, time a step and the state bytes
+             its design moves; the triad also at 256 MiB and 1 GiB, and
+             from a cold L2; the SSD's four stages by torch.profiler), and
+             prints one `{"kernels": [...]}` line.
 
 The line before the last is `nvidia-smi`'s name and power limit of the
 card; the last line is `{"ok": true, "device": {...}}`.  Without a CUDA
@@ -70,6 +76,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import gc
 import json
 import math
@@ -140,6 +147,7 @@ class Smoke:
         self.err_by = {}                      # the same per (kernel, tag)
         self.checks = {k: 0 for k in SOURCES}
         self.triad_library_gap = 0.0         # torch.addcmul vs the kernel
+        self.engine_designs = {}              # geometry -> engine design
 
     # -- helpers -------------------------------------------------------------
     def t(self, a, dtype=None):
@@ -421,11 +429,14 @@ class Smoke:
 
     # -- phase 2c: the engine ---------------------------------------------------------
     def geometries(self):
+        """The six registered platforms and the paper's Table 1 geometry."""
         from repro_torch.core import cachesim
-        from repro_torch.core.platforms import get_platform
-        return {"skylake_sp": get_platform("skylake_sp").machine(),
-                "table1": cachesim.MachineGeometry(
-                    l2=cachesim.SKYLAKE_L2, llc=cachesim.skylake_llc(20))}
+        from repro_torch.core.platforms import get_platform, list_platforms
+        out = {name: get_platform(name).machine()
+               for name in list_platforms()}
+        out["table1"] = cachesim.MachineGeometry(
+            l2=cachesim.SKYLAKE_L2, llc=cachesim.skylake_llc(20))
+        return out
 
     def engine_stream(self, geom, T: int, rng, lines: int):
         blocks = rng.integers(0, lines, T).astype(np.int32)
@@ -435,19 +446,38 @@ class Smoke:
         return blocks, cores, cot
 
     def check_engine(self):
+        """Every geometry through the design the plan picks (skylake_sp
+        and Table 1 with 128 and 8 lanes, the other five platforms with
+        32), then skylake_sp through the copy-on-touch design, forced by
+        a shared-memory budget of 0 in every engine call of the case."""
+        import functools
         from repro_torch.core import cachesim
-        for gname, base in self.geometries().items():
+        geoms = self.geometries()
+        cases = [(gname, base, False) for gname, base in geoms.items()]
+        cases.append(("skylake_sp", geoms["skylake_sp"], True))
+        launch = cachesim._engine_cuda
+        for gname, base, forced in cases:
             lines = 3 * base.llc.n_lines
-            small = gname == "table1"
+            B = {"skylake_sp": 128, "table1": 8}.get(gname, 32)
+            budget = 0 if forced else cachesim.SMEM_BUDGET
+            design = cachesim._engine_plan(base, 128, False, budget).design
+            self.engine_designs[f"{gname}{' forced' if forced else ''}"] = \
+                design
             for repl in ("lru", "random"):
                 for incl in ("inclusive", "non_inclusive"):
                     geom = dataclasses.replace(base, replacement=repl,
                                                inclusion=incl)
                     tag = f"{gname} {repl} {incl}"
                     rng = np.random.default_rng(
-                        len(tag) + 7 * (repl == "lru"))
-                    self._engine_case(cachesim, geom, tag, rng, lines,
-                                      B=8 if small else 128)
+                        len(tag) + 7 * (repl == "lru") + 3 * forced)
+                    tag += f" ({design})"
+                    cachesim._engine_cuda = functools.partial(
+                        launch, smem_budget=budget)
+                    try:
+                        self._engine_case(cachesim, geom, tag, rng, lines,
+                                          B=B)
+                    finally:
+                        cachesim._engine_cuda = launch
 
     def _states_agree(self, what, a, b):
         for key in ("l2", "llc"):
@@ -1572,6 +1602,88 @@ def lm_kernel_rows(smoke, card, launches):
     return rows
 
 
+def engine_breakdown(smoke, cachesim, runner, main_s, card):
+    """Phase 3 (i)'s breakdown of `run_cachex("skylake_sp")` by engine
+    launch shape ("<mode> GxBxT"): CUDA events around each launch (an
+    upper bound, with the host's enqueue) against the host clock, then
+    each kernel's device time from torch.profiler."""
+    torch = smoke.torch
+    from torch.profiler import ProfilerActivity, profile
+    launch = cachesim._engine_cuda
+    order, spans = [], []
+
+    def key(a):
+        return ("commit " if a[6] else "measure ") + "x".join(
+            str(int(x)) for x in a[2].shape)
+
+    def timed_launch(*a, **kw):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        lat = launch(*a, **kw)
+        end.record()
+        spans.append((key(a), start, end))
+        return lat
+
+    def counted_launch(*a, **kw):
+        order.append(key(a))
+        return launch(*a, **kw)
+
+    cachesim._engine_cuda = timed_launch
+    try:
+        t0 = time.perf_counter()
+        runner.run_cachex("skylake_sp")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        cachesim._engine_cuda = counted_launch
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            runner.run_cachex("skylake_sp")
+            torch.cuda.synchronize()
+    finally:
+        cachesim._engine_cuda = launch
+    kernels = sorted((e for e in prof.events()
+                      if str(e.device_type).endswith("CUDA")
+                      and "cachesim_engine_kernel" in e.name),
+                     key=lambda e: e.time_range.start)
+    paired = len(kernels) == len(order)
+    by = {}   # "<mode> GxBxT" -> launches, event ms, device ms
+    for k, start, end in spans:
+        r = by.setdefault(k, {"launches": 0, "event_ms": 0.0,
+                              "device_ms": 0.0 if paired else None})
+        r["launches"] += 1
+        r["event_ms"] += start.elapsed_time(end)
+    for k, e in zip(order, kernels) if paired else ():
+        by[k]["device_ms"] += e.time_range.elapsed_us() / 1e3
+    event_ms = sum(r["event_ms"] for r in by.values())
+    device_ms = (sum(r["device_ms"] for r in by.values()) if paired
+                 else None)
+    print(f"main breakdown: wall {wall:.3f} s with events (uninstrumented "
+          f"run {main_s:.3f} s), engine event time {event_ms:.1f} ms over "
+          f"{len(spans)} launches (device idle at least "
+          f"{100 * (1 - event_ms / 1e3 / wall):.1f}%); engine device time "
+          + (f"{device_ms:.3f} ms by torch.profiler ({len(kernels)} kernels)"
+             if paired else f"not measured (the profiler saw "
+             f"{len(kernels)} engine kernels for {len(order)} launches)")
+          + f" on {card}")
+    for k, r in sorted(by.items(), key=lambda kv: -kv[1]["event_ms"]):
+        dev = (f", device {r['device_ms']:.3f} ms "
+               f"({r['device_ms'] / r['launches'] * 1e3:.1f} us a launch)"
+               if paired else "")
+        print(f"  engine {k} (G x B x T): {r['launches']} launches, events "
+              f"{r['event_ms']:.3f} ms{dev}")
+    for mode in ("commit", "measure"):
+        sel = [r for k, r in by.items() if k.startswith(mode)]
+        dev = (f", device {sum(r['device_ms'] for r in sel):.3f} ms"
+               if paired else "")
+        print(f"  engine {mode} mode: {sum(r['launches'] for r in sel)} "
+              f"launches, events {sum(r['event_ms'] for r in sel):.3f} ms"
+              f"{dev}")
+    return {"wall_s": wall, "engine_event_ms": event_ms,
+            "engine_device_ms": device_ms,
+            "device_idle_share": 1.0 - event_ms / 1e3 / wall,
+            "by_shape_GBT": dict(sorted(by.items()))}
+
+
 def ssd_stage_us(smoke, call, reps: int = 5):
     """Device microseconds per launch of each of the SSD kernel's stages
     (its four CUDA kernels, by name), from torch.profiler over ``reps``
@@ -1651,7 +1763,9 @@ def main() -> int:
           f"{smoke.err_by['flash_attention']}, ssd_scan "
           f"{smoke.err_by['ssd_scan']}, within the stated tolerances "
           f"(checks {smoke.checks}, launches {dict(_build.LAUNCHES)}) in "
-          f"{out['phases']['kernels_s']:.1f} s")
+          f"{out['phases']['kernels_s']:.1f} s; engine designs "
+          f"{smoke.engine_designs}")
+    out["engine_designs"] = smoke.engine_designs
 
     # -- 3. main path -----------------------------------------------------------------
     _build.reset_counters()
@@ -1683,44 +1797,11 @@ def main() -> int:
     # where the time goes: a second run with CUDA events around every
     # engine launch against the host clock (wall).  Each pair of events
     # also spans the host's enqueue of its launch, so the sum is an upper
-    # bound on the engine's device time.
-    events = []
-    launch = cachesim._engine_cuda
-
-    def timed_launch(*a, **kw):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        lat = launch(*a, **kw)
-        end.record()
-        events.append((start, end, a[2].shape))
-        return lat
-
-    cachesim._engine_cuda = timed_launch
-    try:
-        t0 = time.perf_counter()
-        runner.run_cachex("skylake_sp")
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    finally:
-        cachesim._engine_cuda = launch
-    by_shape = {}
-    for start, end, shape in events:
-        key = "x".join(str(int(x)) for x in shape)
-        n, ms = by_shape.get(key, (0, 0.0))
-        by_shape[key] = (n + 1, ms + start.elapsed_time(end))
-    device_ms = sum(ms for _, ms in by_shape.values())
-    out["main"]["breakdown"] = {
-        "wall_s": wall, "engine_device_ms": device_ms,
-        "device_idle_share": 1.0 - device_ms / 1e3 / wall,
-        "by_shape_GBT": {k: {"launches": n, "ms": ms}
-                         for k, (n, ms) in sorted(by_shape.items())}}
-    print(f"main breakdown: wall {wall:.3f} s with events (uninstrumented "
-          f"run {main_s:.3f} s), engine device time at most "
-          f"{device_ms:.1f} ms over {len(events)} launches, device idle at "
-          f"least {100 * (1 - device_ms / 1e3 / wall):.1f}% on {card}")
-    for k, (n, ms) in sorted(by_shape.items(), key=lambda kv: -kv[1][1]):
-        print(f"  engine (G, B, T) = {k}: {n} launches, {ms:.2f} ms")
+    # bound on the engine's device time.  A third run under torch.profiler
+    # gives each engine kernel's own device time, paired with its launch
+    # by order (one stream).
+    out["main"]["breakdown"] = engine_breakdown(smoke, cachesim, runner,
+                                                main_s, card)
 
     # the LRU kernels' own entry points at the main path's shapes
     path_launches = {}
@@ -1763,7 +1844,18 @@ def main() -> int:
     rng = np.random.default_rng(0)
     rows = []
 
-    def engine_case(geom, gname, shape):
+    def engine_case(geom, gname, shape, budget=cachesim.SMEM_BUDGET):
+        """Device time of one engine launch at ``shape`` ((T,) commit or
+        (B, T) measure) after a warming stream, with the design the plan
+        picks under ``budget`` and the state bytes that design moves: the
+        staged state in and, in commit mode, out (shared); the rows each
+        lane copied, read and written (touch, measure mode; from the
+        kernel's own count); the touched rows, read and written in place
+        (touch, commit)."""
+        plan = cachesim._engine_plan(geom, shape[-1], len(shape) == 1,
+                                     budget)
+        launch = functools.partial(cachesim._engine_cuda,
+                                   smem_budget=budget)
         state = cachesim.init_machine(geom, smoke.dev)
         warm = rng.integers(0, 3 * geom.llc.n_lines, 4096).astype(np.int32)
         cachesim.access_stream(state, geom, smoke.t(warm),
@@ -1777,7 +1869,7 @@ def main() -> int:
                        smoke.engine_stream(geom, T, rng, lines))
             args_ = (b[None, None], c[None], t[None], None, True)
             l2_before = state["l2"][0].clone()
-            cachesim._engine_cuda(single, geom, *args_)
+            launch(single, geom, *args_)
             # rows the back-invalidations changed are read and written too
             changed = (state["l2"][0] != l2_before).any(dim=-1)
             l2_rows, llc_rows = touched_rows(cachesim, geom, b, c, t)
@@ -1785,7 +1877,7 @@ def main() -> int:
                 l2_rows, np.flatnonzero(changed.cpu().numpy()))
             nbytes = engine_bytes(geom, len(l2_rows), len(llc_rows), T, 1,
                                   commit=True)
-            mode = "access_stream"
+            mode, lanes_, copied = "access_stream", 1, None
         else:
             B, T = shape
             lanes = rng.integers(0, lines, (B, T)).astype(np.int32)
@@ -1798,20 +1890,36 @@ def main() -> int:
             l2_rows, llc_rows = touched_rows(cachesim, geom, b, c, t)
             nbytes = engine_bytes(geom, len(l2_rows), len(llc_rows), B * T,
                                   B, commit=False)
-            mode = "access_streams_batched"
+            mode, lanes_, copied = "access_streams_batched", B, None
+            if plan.design == "touch":
+                copied = smoke.torch.zeros((B, 2), dtype=smoke.torch.int32,
+                                           device=smoke.dev)
+                launch(single, geom, *args_, rows_copied=copied)
+                copied = copied.sum(dim=0).tolist()
         valid = int((b >= 0).sum())
         # 2 compares (tag, age) per way per level per valid step
         ops = 2 * valid * (geom.l2.n_ways + geom.llc.n_ways)
         b_ms, b_by = bound(nbytes, ops)
-        ms = smoke.device_ms(lambda: cachesim._engine_cuda(single, geom,
-                                                           *args_))
+        ms = smoke.device_ms(lambda: launch(single, geom, *args_))
         plain_ms = smoke.timeit(lambda: cachesim.engine_ref(single, geom,
                                                             *args_),
                                 reps=1, warmup=0)
+        row_bytes = (8 * geom.l2.n_ways, 8 * geom.llc.n_ways)
+        state_bytes = 8 * (geom.n_cores * geom.l2.n_sets * geom.l2.n_ways
+                           + geom.n_domains * geom.llc.n_lines)
+        if plan.design == "shared":
+            moved = lanes_ * state_bytes * (2 if len(shape) == 1 else 1)
+        elif copied is not None:
+            moved = 2 * (copied[0] * row_bytes[0] + copied[1] * row_bytes[1])
+        else:
+            moved = 2 * (len(l2_rows) * row_bytes[0]
+                         + len(llc_rows) * row_bytes[1])
         return {"geometry": gname, "entry": mode, "shape": list(shape),
-                "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                "design": plan.design, "forced": budget == 0, "ms": ms,
+                "ms_per_step": ms / T, "plain_ms": plain_ms, "bound_ms": b_ms,
                 "bound_by": b_by, "bytes": nbytes, "ops": ops,
-                "touched_rows": {"l2": len(l2_rows), "llc": len(llc_rows)}}
+                "touched_rows": {"l2": len(l2_rows), "llc": len(llc_rows)},
+                "rows_copied": copied, "state_bytes_moved": moved}
 
     engine_shapes = [engine_case(sky, "skylake_sp", (16, 128)),
                      engine_case(sky, "skylake_sp", (64, 128)),
@@ -1819,7 +1927,10 @@ def main() -> int:
                      engine_case(sky, "skylake_sp", (512,)),
                      engine_case(sky, "skylake_sp", (1536,)),
                      engine_case(table1, "table1", (16, 128)),
-                     engine_case(table1, "table1", (1536,))]
+                     engine_case(table1, "table1", (1536,)),
+                     # the copy-on-touch design on skylake_sp, forced
+                     engine_case(sky, "skylake_sp", (16, 128), budget=0),
+                     engine_case(sky, "skylake_sp", (1536,), budget=0)]
     head = engine_shapes[0]
     rows.append({"name": "cachesim_engine", "route": "cuda",
                  "source": SOURCES["cachesim_engine"][0],
@@ -1831,7 +1942,9 @@ def main() -> int:
                  "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
                  "library_ms": None,
                  "shape": "access_streams_batched (16, 128) skylake_sp",
-                 "shapes": engine_shapes, "card": card})
+                 "shapes": engine_shapes,
+                 "main_by_shape": out["main"]["breakdown"]["by_shape_GBT"],
+                 "card": card})
 
     W, T = 8, 128
     valid = int((rows_streams >= 0).sum())
@@ -1910,10 +2023,14 @@ def main() -> int:
           f"{card}")
     for s in engine_shapes:
         print(f"time cachesim_engine {s['entry']} {s['geometry']} "
-              f"{tuple(s['shape'])}: {s['ms']:.4f} ms (plain "
+              f"{tuple(s['shape'])}, {s['design']} design"
+              f"{' (forced)' if s['forced'] else ''}: {s['ms']:.4f} ms, "
+              f"{s['ms_per_step'] * 1e3:.4f} us a step (plain "
               f"{s['plain_ms']:.2f} ms, bound {s['bound_ms']:.7f} ms by "
               f"{s['bound_by']}, {s['bytes']} bytes, touched rows "
-              f"{s['touched_rows']}) on {card}")
+              f"{s['touched_rows']}, state bytes its design moves "
+              f"{s['state_bytes_moved']}, rows copied {s['rows_copied']}) "
+              f"on {card}")
     out["kernels"] = rows
     out["phases"]["total_s"] = time.perf_counter() - t_all
     if args.out:

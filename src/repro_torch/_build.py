@@ -38,19 +38,23 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
+#: bytes of shared memory one block may use on sm_90 (227 KB, after
+#: cudaFuncSetAttribute above 48 KB)
+SMEM_PER_BLOCK = 232448
+
 _P, _I, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
 _L, _F = ctypes.c_int64, ctypes.c_float
 #: source name -> {C function: argument types}; every function returns int.
 SIGNATURES: Dict[str, Dict[str, tuple]] = {
     "cachesim_engine": {
-        "cachesim_engine_launch": (_P,) * 15 + (_I,) * 11 + (_U,) + (_I,) * 3
+        "cachesim_engine_launch": (_P,) * 17 + (_I,) * 11 + (_U,) + (_I,) * 8
                                   + (_P,),
     },
     "cachesim_step": {
         "lru_sets_launch": (_P,) * 6 + (_I,) * 4 + (_P,),
     },
     "cache_probe": {
-        "prime_probe_launch": (_P,) * 7 + (_I,) * 4 + (_P,),
+        "prime_probe_launch": (_P,) * 5 + (_I,) * 4 + (_P,),
     },
     "flash_attention": {
         "flash_attention_launch": (_P,) * 4 + (_I,) * 6 + (_L,) * 12

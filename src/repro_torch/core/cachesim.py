@@ -21,8 +21,9 @@ The engine behind the four entry points (`access_stream`,
 `access_streams_batched_multi`) has two backends, chosen by where the
 state lies: on a CUDA device the hand-written kernel
 ``csrc/cachesim_engine.cu`` (one launch per call, counted in
-``_build.LAUNCHES["cachesim_engine"]``), on the CPU a plain PyTorch loop
-over steps, vectorized over lanes and guests (counted in
+``_build.LAUNCHES["cachesim_engine"]``; :func:`_engine_plan` picks from
+the geometry where it keeps a lane's rows), on the CPU a plain PyTorch
+loop over steps, vectorized over lanes and guests (counted in
 ``_build.PLAIN_CALLS["cachesim_engine"]``).  Committed calls update the
 state in place (the JAX entry points donate it) and return it.
 """
@@ -227,7 +228,61 @@ def engine(states: Dict, geom: MachineGeometry, blocks, cores, cotenant,
     return _engine_cuda(states, geom, blocks, cores, cotenant, salts, commit)
 
 
-def _engine_cuda(states, geom, blocks, cores, cotenant, salts, commit):
+#: the shared memory the engine's plan may give a block
+SMEM_BUDGET = _build.SMEM_PER_BLOCK
+
+
+@dataclasses.dataclass(frozen=True)
+class EnginePlan:
+    """Where ``csrc/cachesim_engine.cu`` keeps a lane's rows.
+
+    ``design`` "shared": the block stages its guest's whole state in
+    ``shared_bytes`` of shared memory (commit mode writes it back).
+    "touch": the rows stay in device memory; commit mode works in place,
+    measure mode copies a row into the lane's pool of ``l2_pool_rows`` /
+    ``llc_pool_rows`` rows at its first touch, through a row -> slot table
+    in shared memory (``table_shared``, then ``shared_bytes`` is its size)
+    or in device memory."""
+    design: str
+    shared_bytes: int
+    table_shared: bool
+    l2_pool_rows: int
+    llc_pool_rows: int
+
+
+def _pad4(n: int) -> int:
+    return (n + 3) // 4 * 4
+
+
+def _engine_plan(geom: MachineGeometry, T: int, commit: bool,
+                 smem_budget: int = SMEM_BUDGET) -> EnginePlan:
+    """The engine's design for ``geom`` and ``T`` steps: "shared" when one
+    guest's state (tags and ages, each segment padded to 16 bytes) fits in
+    ``smem_budget`` bytes, else "touch", whose pools hold every row a lane
+    can copy: per step one L2 row and the domain's ``cores_per_domain``
+    back-invalidated ones, and one LLC row."""
+    l2_rows = geom.n_cores * geom.l2.n_sets
+    llc_rows = geom.n_domains * geom.llc.n_slices * geom.llc.n_sets
+    state = 8 * (_pad4(l2_rows * geom.l2.n_ways)
+                 + _pad4(llc_rows * geom.llc.n_ways))
+    if state <= smem_budget:
+        return EnginePlan("shared", state, False, 0, 0)
+    if commit:
+        return EnginePlan("touch", 0, False, 0, 0)
+    table = 4 * (l2_rows + llc_rows)
+    shared = table <= smem_budget
+    return EnginePlan("touch", table if shared else 0, shared,
+                      min(l2_rows, (1 + geom.cores_per_domain) * T),
+                      min(llc_rows, T))
+
+
+def _engine_cuda(states, geom, blocks, cores, cotenant, salts, commit, *,
+                 smem_budget: int = SMEM_BUDGET,
+                 rows_copied: Optional[torch.Tensor] = None):
+    """Launch the engine kernel on normalized inputs, in the design
+    :func:`_engine_plan` picks under ``smem_budget``.  ``rows_copied``, a
+    (G * B, 2) int32 CUDA tensor, receives the L2 and LLC rows each lane
+    copied (touch design, measure mode only)."""
     l2t, l2a = states["l2"]
     llt, lla = states["llc"]
     G, B, T = blocks.shape
@@ -249,26 +304,40 @@ def _engine_cuda(states, geom, blocks, cores, cotenant, salts, commit):
     lat = torch.empty((G, B, T), dtype=i32, device=blocks.device)
     if G * B == 0:
         return lat
-    if commit:
-        work = (l2t, l2a, llt, lla)
-    else:
+    if not commit:
         if salts is None or tuple(salts.shape) != (G,):
             raise ValueError("cachesim_engine: measure mode needs (G,) salts")
         _build.check_cuda("cachesim_engine", salts, dtypes=(torch.int64,))
-        work = tuple(torch.empty((G * B,) + tuple(x.shape[1:]), dtype=i32,
-                                 device=x.device)
-                     for x in (l2t, l2a, llt, lla))
+    plan = _engine_plan(geom, T, commit, smem_budget)
+    pools, table = (None,) * 4, None
+    if plan.design == "touch" and not commit:   # per lane: tags, ages
+        L, dev = G * B, blocks.device
+        l2 = (L, plan.l2_pool_rows, geom.l2.n_ways)
+        llc = (L, plan.llc_pool_rows, geom.llc.n_ways)
+        pools = tuple(torch.empty(shape, dtype=i32, device=dev)
+                      for shape in (l2, l2, llc, llc))
+        if not plan.table_shared:
+            rows = (geom.n_cores * geom.l2.n_sets + geom.n_domains
+                    * geom.llc.n_slices * geom.llc.n_sets)
+            table = torch.empty((L, rows), dtype=i32, device=dev)
+    if rows_copied is not None:
+        _build.check_cuda("cachesim_engine", rows_copied, dtypes=(i32,))
+        if tuple(rows_copied.shape) != (G * B, 2):
+            raise ValueError(f"cachesim_engine: rows_copied must be "
+                             f"({G * B}, 2)")
     p = _build.ptr
     _build.call(
         "cachesim_engine", "cachesim_engine_launch",
         p(l2t), p(l2a), p(llt), p(lla), p(states["clock"]), p(states["rng"]),
-        *(p(x) for x in work), p(blocks), p(cores), p(cotenant),
-        p(None if commit else salts), p(lat),
+        *(p(x) for x in pools), p(table), p(rows_copied), p(blocks),
+        p(cores), p(cotenant), p(None if commit else salts), p(lat),
         G, B, T, geom.n_cores, geom.cores_per_domain, geom.n_domains,
         geom.l2.n_sets, geom.l2.n_ways, geom.llc.n_sets, geom.llc.n_ways,
         geom.llc.n_slices, geom.slice_seed & _M32,
         int(geom.replacement == "random"),
         int(geom.inclusion == "inclusive"), int(commit),
+        int(plan.design == "shared"), int(plan.table_shared),
+        plan.l2_pool_rows, plan.llc_pool_rows, plan.shared_bytes,
         _build.stream(blocks.device))
     _build.LAUNCHES["cachesim_engine"] += 1
     return lat

@@ -19,6 +19,10 @@ from repro_torch.kernels.cache_probe.ref import prime_probe_ref, triad_ref
 
 __all__ = ["triad", "triad_device_seconds", "prime_probe"]
 
+#: the widest row `csrc/cache_probe.cu` takes: four rows of W tags and W
+#: ages in the shared memory of one block
+PRIME_PROBE_MAX_WAYS = _build.SMEM_PER_BLOCK // (4 * 2 * 4)
+
 
 def triad(a: torch.Tensor, b: torch.Tensor,
           scale: torch.Tensor) -> torch.Tensor:
@@ -76,7 +80,9 @@ def prime_probe(tags: torch.Tensor, age: torch.Tensor,
                 streams: torch.Tensor, targets: torch.Tensor,
                 clock0: int = 1) -> torch.Tensor:
     """tags/age: (B, W) int32; streams: (B, T) -1-padded prime accesses;
-    targets: (B,) int32.  Returns evicted verdicts (B,) bool."""
+    targets: (B,) int32.  Returns evicted verdicts (B,) bool.  On the card
+    W is at most :data:`PRIME_PROBE_MAX_WAYS` (rows past 32 ways sit in
+    shared memory, four rows a block)."""
     if tags.dim() != 2 or age.shape != tags.shape or streams.dim() != 2 \
             or streams.shape[0] != tags.shape[0] \
             or tuple(targets.shape) != (tags.shape[0],):
@@ -90,15 +96,15 @@ def prime_probe(tags: torch.Tensor, age: torch.Tensor,
                       dtypes=(torch.int32,) * 4)
     B, W = tags.shape
     T = streams.shape[1]
+    if not 0 < W <= PRIME_PROBE_MAX_WAYS:
+        raise ValueError(f"prime_probe: {W} ways (the kernel takes 1 to "
+                         f"{PRIME_PROBE_MAX_WAYS})")
     evicted = torch.empty(B, dtype=torch.bool, device=tags.device)
     if B == 0:
         return evicted
-    work_tags = torch.empty_like(tags)
-    work_age = torch.empty_like(age)
     _build.call("cache_probe", "prime_probe_launch",
                 _build.ptr(tags), _build.ptr(age), _build.ptr(streams),
-                _build.ptr(targets), _build.ptr(work_tags),
-                _build.ptr(work_age), _build.ptr(evicted), B, W, T,
+                _build.ptr(targets), _build.ptr(evicted), B, W, T,
                 int(clock0), _build.stream(tags.device))
     _build.LAUNCHES["prime_probe"] += 1
     return evicted

@@ -111,6 +111,174 @@ def test_engine_kernel_matches_plain(replacement, inclusion):
     assert torch.equal(lk, lp)
 
 
+# -- the engine's two designs and the warp form of lru_touch (fifth slice) ------------
+
+def _geometry(name):
+    """The six registered platforms, the paper's Table 1 geometry and a
+    geometry whose rows are wider than a warp (40 and 36 ways, two
+    domains), which runs `lru_touch_warp` on rows in memory."""
+    if name == "table1":
+        return cachesim.MachineGeometry(l2=cachesim.SKYLAKE_L2,
+                                        llc=cachesim.skylake_llc(20))
+    if name == "wide":
+        return cachesim.MachineGeometry(
+            n_domains=2, cores_per_domain=2,
+            l2=cachesim.CacheGeometry(n_sets=32, n_ways=40),
+            llc=cachesim.CacheGeometry(n_sets=64, n_ways=36, n_slices=2))
+    return platforms.get_platform(name).machine()
+
+
+def _conflict_blocks(rng, geom, shape):
+    """-1-padded blocks, 60% of them on four sets of both levels (every
+    set count is a power of two), enough lines there to overflow the
+    domain's LLC rows of those sets, so victims and back-invalidations
+    happen; the rest spread over three times the LLC."""
+    period = max(geom.l2.n_sets, geom.llc.n_sets)
+    many = 2 * max(geom.l2.n_ways, geom.llc.n_ways * geom.llc.n_slices)
+    hot = rng.integers(0, 4, shape) + period * rng.integers(0, many, shape)
+    spread = rng.integers(0, 3 * geom.llc.n_lines, shape)
+    blocks = np.where(rng.random(shape) < 0.6, hot, spread)
+    blocks[rng.random(shape) < 0.1] = -1
+    return blocks.astype(np.int32)
+
+
+def _clone(state):
+    return {k: (tuple(x.clone() for x in v) if isinstance(v, tuple)
+                else v.clone()) for k, v in state.items()}
+
+
+def _assert_states_equal(a, b):
+    for key in ("l2", "llc"):
+        for x, y in zip(a[key], b[key]):
+            assert torch.equal(x, y), key
+    assert torch.equal(a["clock"], b["clock"])
+    assert torch.equal(a["rng"], b["rng"])
+
+
+def _lane_rows(geom, blocks, cores, cot):
+    """Per lane, the distinct L2 rows its prober accesses touch and the
+    distinct LLC rows its valid accesses touch: (G * B, 2)."""
+    G, B, T = blocks.shape
+    blk = blocks.reshape(G * B, T).astype(np.int64)
+    core = np.broadcast_to(cores.reshape(G * B, 1), blk.shape)
+    prober = (blk >= 0) & ~np.broadcast_to(cot.reshape(G * B, 1), blk.shape)
+    sb = np.where(blk >= 0, blk, 0)
+    sl = cachesim.slice_hash(torch.as_tensor(sb), geom.llc.n_slices,
+                             geom.slice_seed).numpy().astype(np.int64)
+    l2 = core * geom.l2.n_sets + sb % geom.l2.n_sets
+    llc = ((core // geom.cores_per_domain * geom.llc.n_slices + sl)
+           * geom.llc.n_sets + sb % geom.llc.n_sets)
+    return np.array([[len(np.unique(l2[i][prober[i]])),
+                      len(np.unique(llc[i][blk[i] >= 0]))]
+                     for i in range(G * B)])
+
+
+def _engine_matches_plain(name, replacement, inclusion, budget):
+    """Commit mode twice (cold, then warm) on 3 guests, then measure mode
+    on 3 guests x 8 lanes, through `_engine_cuda` under ``budget``, each
+    against `engine_ref` on a copy: latencies, states, clocks and rngs."""
+    dev = _card()
+    geom = dataclasses.replace(_geometry(name), replacement=replacement,
+                               inclusion=inclusion)
+    G, B, T = 3, 8, 128
+    plan = cachesim._engine_plan(geom, T, False, budget)
+    assert plan.design == ("touch" if budget == 0 or name == "table1"
+                           else "shared")
+    rng = np.random.default_rng(len(name) + 3 * len(replacement)
+                                + len(inclusion))
+    kern = cachesim.stack_states([cachesim.init_machine(geom, dev)
+                                  for _ in range(G)])
+    plain = _clone(kern)
+    n0 = _build.LAUNCHES["cachesim_engine"]
+    for steps in (300, 200):
+        blocks = _on(dev, _conflict_blocks(rng, geom, (G, 1, steps)))
+        cores = _on(dev, rng.integers(0, geom.n_cores, (G, steps))
+                    .astype(np.int32))
+        cot = _on(dev, rng.random((G, steps)) < 0.2)
+        lk = cachesim._engine_cuda(kern, geom, blocks, cores, cot, None,
+                                   True, smem_budget=budget)
+        lp = cachesim.engine_ref(plain, geom, blocks, cores, cot, None, True)
+        assert torch.equal(lk, lp)
+        _assert_states_equal(kern, plain)
+    lanes = _conflict_blocks(rng, geom, (G, B, T))
+    lc = rng.integers(0, geom.n_cores, (G, B)).astype(np.int32)
+    lt = rng.random((G, B)) < 0.25
+    salts = _on(dev, np.array([0, 7, 0xFFFFFFFF], np.int64))
+    copied = torch.full((G * B, 2), -1, dtype=torch.int32, device=dev)
+    lk = cachesim._engine_cuda(kern, geom, _on(dev, lanes), _on(dev, lc),
+                               _on(dev, lt), salts, False,
+                               smem_budget=budget, rows_copied=copied)
+    lp = cachesim.engine_ref(kern, geom, _on(dev, lanes), _on(dev, lc),
+                             _on(dev, lt), salts, False)
+    assert torch.equal(lk, lp)
+    _assert_states_equal(kern, plain)          # measure mode wrote nothing
+    assert _build.LAUNCHES["cachesim_engine"] == n0 + 3
+    if plan.design == "touch":   # a lane copies the rows it touches
+        need = _lane_rows(geom, lanes, lc, lt)
+        got = copied.cpu().numpy()
+        assert (got[:, 1] == need[:, 1]).all()
+        if inclusion == "inclusive":   # and the rows its victims change
+            assert (got[:, 0] >= need[:, 0]).all()
+            assert (got[:, 0] <= need[:, 0]
+                    + geom.cores_per_domain * T).all()
+        else:
+            assert (got[:, 0] == need[:, 0]).all()
+    else:
+        assert (copied.cpu() == -1).all()
+
+
+ENGINE_GEOMETRIES = ["skylake_sp", "icelake_sp", "milan_ccx", "skylake_cat",
+                     "skylake_slicepart", "skylake_shared", "table1", "wide"]
+
+
+@pytest.mark.parametrize("inclusion", ["inclusive", "non_inclusive"])
+@pytest.mark.parametrize("replacement", ["lru", "random"])
+@pytest.mark.parametrize("name", ENGINE_GEOMETRIES)
+def test_engine_kernel_geometries_match_plain(name, replacement, inclusion):
+    """The design each geometry takes: shared memory for the six
+    platforms and the wide rows, copy on first touch for Table 1."""
+    _engine_matches_plain(name, replacement, inclusion,
+                          cachesim.SMEM_BUDGET)
+
+
+@pytest.mark.parametrize("inclusion", ["inclusive", "non_inclusive"])
+@pytest.mark.parametrize("replacement", ["lru", "random"])
+@pytest.mark.parametrize("name", ["skylake_sp", "table1", "wide"])
+def test_engine_kernel_touch_design_matches_plain(name, replacement,
+                                                  inclusion):
+    """A budget of 0 forces the copy-on-touch design, with the row table
+    in device memory."""
+    _engine_matches_plain(name, replacement, inclusion, 0)
+
+
+@pytest.mark.parametrize("W", [4, 8, 11, 16, 33, 40])
+def test_prime_probe_kernel_widths_with_tied_ages(W):
+    """Rows of W ways (one register a lane up to 32, shared memory past
+    it), most of them full with ages drawn from three values, empty ways
+    between full ones in the rest: the LRU choice falls on ties."""
+    dev = _card()
+    rng = np.random.default_rng(W)
+    B, T = 96, 100
+    tags = np.stack([rng.permutation(4 * W)[:W] for _ in range(B)])
+    tags = (tags + 1000).astype(np.int32)
+    gaps = rng.random((B, W)) < 0.3
+    gaps[: B // 2] = False
+    tags[gaps] = -1
+    age = rng.integers(0, 3, (B, W)).astype(np.int32)
+    targets = np.where(rng.random(B) < 0.5, tags[:, 0],
+                       rng.integers(1000, 1000 + 4 * W, B)).astype(np.int32)
+    targets[targets < 0] = 1000
+    streams = rng.integers(1000, 1000 + 3 * W, (B, T)).astype(np.int32)
+    streams[rng.random((B, T)) < 0.1] = -1
+    args = [_on(dev, x) for x in (tags, age, streams, targets)]
+    n0 = _build.LAUNCHES["prime_probe"]
+    got = probe_ops.probe_verdicts(*args, clock0=2)
+    assert _build.LAUNCHES["prime_probe"] == n0 + 1
+    want = probe_ref.prime_probe_ref(*args, clock0=2)
+    assert torch.equal(got, want)
+    assert 0 < int(want.sum()) < B      # both verdicts occur
+
+
 def test_run_cachex_on_the_card_matches_golden():
     _card()
     _build.reset_counters()

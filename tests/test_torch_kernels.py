@@ -86,6 +86,66 @@ def test_lru_touch_victim_matches_engine_touch(W, seed):
             np.testing.assert_array_equal(N(got), np.asarray(want))
 
 
+def _tied_or_gapped_rows(rng, R, W, case):
+    """Rows for the first-index rules.  "tied": full rows whose ages take
+    two values, so the LRU way is a tie.  "gaps": empty ways between full
+    ones (the first empty way is not way 0), ages tied as well."""
+    tags = np.stack([rng.permutation(4 * W)[:W] for _ in range(R)])
+    tags = tags.astype(np.int32)
+    age = rng.integers(5, 7, (R, W)).astype(np.int32)
+    if case == "gaps":
+        holes = rng.random((R, W)) < 0.4
+        holes[:, 0] = False                  # a full way before any hole
+        holes[np.arange(R), rng.integers(1, W, R)] = True
+        tags[holes] = -1
+    return tags, age
+
+
+@pytest.mark.parametrize("case", ["tied", "gaps"])
+@pytest.mark.parametrize("W", [4, 11, 16, 33, 40])
+def test_lru_touch_victim_first_index_rules_match_jax(W, case):
+    """The plain version the kernels' warp form is held to, at widths
+    below, at and past a warp, against JAX's `_lru.lru_touch` (LRU) and
+    the engine's `_touch` (LRU and random replacement, with the victim):
+    hits on a duplicate tag, the first empty way, the first of tied
+    oldest ways, no-ops for -1."""
+    rng = np.random.default_rng(W + 100 * (case == "gaps"))
+    R = 48
+    tags, age = _tied_or_gapped_rows(rng, R, W, case)
+    if case == "tied":
+        tags[:4, 1] = tags[:4, 2]            # duplicate tags: first wins
+    blk = np.where(rng.random(R) < 0.3, tags[:, 0],
+                   rng.integers(4 * W, 6 * W, R)).astype(np.int32)
+    blk[:4] = tags[:4, 2]
+    blk[-3:] = -1
+    for step in range(3):
+        jt, ja, jh = j_lru.lru_touch(jnp.asarray(tags), jnp.asarray(age),
+                                     jnp.asarray(blk), 40 + step)
+        tt, ta, th, tv = t_lru.lru_touch_victim(T(tags), T(age), T(blk),
+                                                40 + step)
+        for got, want in ((tt, jt), (ta, ja), (th, jh)):
+            np.testing.assert_array_equal(N(got), np.asarray(want))
+        for rand in (False, True):
+            bits = (rng.integers(0, 2 ** 31 - 1, R).astype(np.int32)
+                    if rand else np.full(R, -1, np.int32))
+            et, ea, eh, ev = jax.vmap(jsim._touch,
+                                      in_axes=(0, 0, None, 0, 0))(
+                jnp.asarray(tags), jnp.asarray(age), jnp.int32(40 + step),
+                jnp.asarray(blk), jnp.asarray(bits))
+            rt, ra, rh, rv = t_lru.lru_touch_victim(
+                T(tags), T(age), T(blk), 40 + step,
+                T(bits).long() if rand else None)
+            valid = blk >= 0                  # `_touch` has no no-op rule
+            for got, want in ((rt, et), (ra, ea)):
+                np.testing.assert_array_equal(N(got)[valid],
+                                              np.asarray(want)[valid])
+            np.testing.assert_array_equal(N(rh)[valid],
+                                          np.asarray(eh)[valid])
+            np.testing.assert_array_equal(N(rv)[valid],
+                                          np.asarray(ev)[valid])
+        tags, age = np.asarray(jt), np.asarray(ja)
+
+
 # -- lru_sets -------------------------------------------------------------------
 
 LRU_CASES = [(4, 4, 1, 0), (8, 8, 33, 1), (16, 4, 48, 2), (32, 8, 17, 3),
