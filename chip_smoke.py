@@ -10,7 +10,9 @@ Four phases, in order; any failure exits non-zero:
              ptxas's register report and the card's name and power limit;
 2. kernels — holds each kernel against its plain PyTorch version on the
              card: `lru_sets` and `prime_probe` (bit for bit) at the shapes
-             of tests/test_kernels.py, at the main path's shapes, and
+             of tests/test_kernels.py, at the main path's shapes (and
+             `lru_sets` at the widths and lengths of the card tests, 1 to
+             300 ways, 1 to 128 steps), and
              against the engine's batched lanes on a single-level geometry;
              the engine (bit for bit) at all four entry points, under lru
              and random replacement, inclusive and non-inclusive
@@ -53,8 +55,17 @@ Four phases, in order; any failure exits non-zero:
              for 5 steps of 8 x 2048 tokens in 2 microbatches, bf16, remat
              "full", with `PodMonitor(1)` timing the `triad` kernel
              between steps; finite losses, the first near ln(vocab), one
-             triad launch per probe and no plain triad, a plan every step,
-             a 7.4 GB checkpoint written and deleted; then a restart check
+             triad launch per probe besides the monitor's calibration of
+             its nominal at the first probe (the best of five idle triads
+             at each of the 7 sizes its shrink can reach, 64 MiB to 1
+             MiB; at 64 MiB at least 0.7 of the spec bandwidth), none
+             after it, and no
+             plain triad, tier 0 and an EWMA below 1.15 at every
+             probe of the idle card, a plan every step, a 7.4 GB
+             checkpoint written and deleted; the monitor's slowdowns on
+             the idle card, while a second CUDA stream copies 1 GiB
+             device to device in a loop, and after it, the monitor
+             shrinking and restoring its probe as shipped; then a restart check
              on reduced qwen1.5-0.5b (2 steps, resume, equal to 4
              continuous steps, deterministic algorithms) and an
              accumulation check at full width in f32 (1 vs 2
@@ -63,8 +74,11 @@ Four phases, in order; any failure exits non-zero:
              beside its plain version, its bound and the PyTorch library
              call where one exists (the engine also at the Table 1
              geometry, with its design, time a step and the state bytes
-             its design moves; the triad also at 256 MiB and 1 GiB, and
-             from a cold L2; the SSD's four stages by torch.profiler), and
+             its design moves; `lru_sets` also at 8192 x 8 x 128 and 1024
+             x 16 x 512, with its time a step beside one warp touch's
+             latency; the triad also at 256 MiB and 1 GiB, and from a cold
+             L2; the SSD's four stages by torch.profiler, profiled up to
+             three times and any stage still missing named as lost), and
              prints one `{"kernels": [...]}` line.
 
 The line before the last is `nvidia-smi`'s name and power limit of the
@@ -277,6 +291,15 @@ class Smoke:
             age = np.zeros((rows, ways), np.int32)
             streams = rng.integers(-1, 32, size=(rows, T)).astype(np.int32)
             self._lru_pair(ops, ref, tags, age, streams, 1, f"property {i}")
+        # the card tests' widths and lengths (tests/test_torch_gpu.py): every
+        # row holder of the warp design, streams across chunks of 32, 37
+        # rows, tied ages, -1 runs mid-stream, two clocks
+        for W in (1, 4, 8, 11, 16, 32, 33, 40, 100, 200, 300):
+            for T in (1, 31, 32, 33, 128):
+                tags, age, streams = self.lru_edge_rows(37, W, T)
+                for clock0 in (1, 1000):
+                    self._lru_pair(ops, ref, tags, age, streams, clock0,
+                                   f"edges {W} ways x {T} at {clock0}")
         # main path's shape: the skylake_sp LLC rows (2 slices x 512 sets =
         # 1024 rows x 8 ways), warmed by the engine, 128 steps per row
         tags, age, streams, clock0 = self.llc_rows_workload(T=128)
@@ -301,6 +324,34 @@ class Smoke:
         r = ref.lru_sets_ref(*args, clock0=clock0)
         for name, a, b in zip(("tags", "age", "hits"), k, r):
             self.agree("lru_sets", f"{what} {name}", a, b)
+
+    @staticmethod
+    def lru_edge_rows(rows: int, W: int, T: int):
+        """Rows full and half empty with repeated blocks and many tied
+        ages, and streams of hits and misses with -1 runs mid-stream
+        (tests/test_torch_gpu.py's width test takes its inputs from
+        here)."""
+        rng = np.random.default_rng(W * 1000 + T)
+        tags = rng.permutation(np.arange(rows * W) % (3 * W + 1)).astype(
+            np.int32).reshape(rows, W)
+        tags[rows // 2:, W // 2:] = -1
+        age = rng.integers(0, 4, (rows, W)).astype(np.int32)
+        streams = rng.integers(0, 3 * W + 1, (rows, T)).astype(np.int32)
+        streams[rng.random((rows, T)) < 0.15] = -1
+        streams[::3, T // 3: T // 3 + 5] = -1
+        return tags, age, streams
+
+    @staticmethod
+    def lru_random_rows(rows: int, W: int, T: int, seed: int = 4):
+        """Rows a fifth empty with ages below 1000, and streams over 4 W
+        blocks, a tenth of the steps -1."""
+        rng = np.random.default_rng(seed)
+        tags = rng.integers(0, 4 * W, (rows, W)).astype(np.int32)
+        tags[rng.random((rows, W)) < 0.2] = -1
+        age = rng.integers(0, 1000, (rows, W)).astype(np.int32)
+        streams = rng.integers(0, 4 * W, (rows, T)).astype(np.int32)
+        streams[rng.random((rows, T)) < 0.1] = -1
+        return tags, age, streams
 
     def llc_rows_workload(self, T: int, seed: int = 3):
         """The skylake_sp LLC rows after a warming stream, and one
@@ -1108,6 +1159,15 @@ RESTART_RTOL = 1e-5
 # What earlier phases may leave allocated when training starts: their
 # small tensors, not the serving phase's 9.4 GiB of zamba2 weights.
 TRAIN_START_MAX_BYTES = 1 << 30
+# Probes in each third of the monitor's contended window (idle, under
+# the copy loop, after it), and the 1 GiB copies its second stream runs
+# (about 0.72 ms each alone: they outlast the probes)
+MONITOR_PROBES = 10
+CONTENTION_COPIES = 1000
+# The least share of the spec bandwidth (3.35 TB/s) that the monitor's
+# idle 64 MiB nominal may have: an idle H100 80GB HBM3 moves 2.47-2.64
+# TB/s there (0.74-0.79), a card under a co-tenant's copy loop far less.
+IDLE_NOMINAL_MIN_SHARE = 0.7
 
 
 def matmul_params(cfg):
@@ -1158,7 +1218,9 @@ def train_main_path(smoke, card):
     from repro_torch.checkpoint import ckpt
     from repro_torch.configs.base import ShapeSpec, get_config
     from repro_torch.data.pipeline import DataConfig, make_batch
-    from repro_torch.tpuprobe.monitor import PodMonitor
+    from repro_torch.launch.mesh import HBM_BW
+    from repro_torch.tpuprobe.monitor import (_CALIBRATION_PROBES, PodMonitor,
+                                              _probe_sizes)
     from repro_torch.train import train_step as ts
     from repro_torch.train.trainer import Trainer, TrainerConfig
     start = torch.cuda.memory_allocated()
@@ -1199,6 +1261,7 @@ def train_main_path(smoke, card):
         # instrumentation: the host time of each probe and of the
         # checkpoint, and the last state (for the profiled step)
         probe_s, probe_bytes, ck, last = [], [], {}, {}
+        probe_tiers, probe_ewma = [], []
         probe_once, step_fn = monitor.probe_once, tr._step
         save_async, wait = tr.checkpointer.save_async, tr.checkpointer.wait
 
@@ -1207,6 +1270,8 @@ def train_main_path(smoke, card):
             t0 = time.perf_counter()
             out = probe_once()
             probe_s.append(time.perf_counter() - t0)
+            probe_tiers.append(monitor.device_tiers()[0])
+            probe_ewma.append(float(monitor.ewma[0]))
             return out
 
         def keep_state(state, batch):
@@ -1247,11 +1312,31 @@ def train_main_path(smoke, card):
             raise AssertionError(f"train: first loss {losses[0]:.3f}, not "
                                  f"within {FIRST_LOSS_TOL} of ln(vocab) "
                                  f"{math.log(cfg.vocab):.2f}")
-        if probes != TRAIN_STEPS or launches != {"triad": probes} or plain:
+        calib = monitor._calibration_launches
+        sizes = _probe_sizes(monitor.default_probe_bytes)
+        want_calib = _CALIBRATION_PROBES * len(sizes)
+        if probes != TRAIN_STEPS or calib != want_calib \
+                or launches != {"triad": probes + calib} or plain:
             raise AssertionError(f"train: {probes} probes, launches "
-                                 f"{launches}, plain calls {plain}; expected "
-                                 f"one triad launch per probe and no plain "
-                                 f"call")
+                                 f"{launches} ({calib} calibrating the "
+                                 f"nominal), plain calls {plain}; expected "
+                                 f"one triad launch per probe besides "
+                                 f"{want_calib} calibrating it "
+                                 f"({_CALIBRATION_PROBES} at each of "
+                                 f"{len(sizes)} sizes), and no plain call")
+        idle_share = (monitor.default_probe_bytes / HBM_BW
+                      / monitor._idle_s[monitor.default_probe_bytes])
+        if idle_share < IDLE_NOMINAL_MIN_SHARE:
+            raise AssertionError(f"train: the monitor's idle nominal at "
+                                 f"{monitor.default_probe_bytes >> 20} MiB "
+                                 f"is {idle_share:.3f} of the spec "
+                                 f"{HBM_BW / 1e12:.2f} TB/s, below "
+                                 f"{IDLE_NOMINAL_MIN_SHARE}: was the card "
+                                 f"busy when it calibrated?")
+        if any(probe_tiers) or max(probe_ewma) >= 1.15:
+            raise AssertionError(f"train: the monitor reads contention on "
+                                 f"the idle card: tiers {probe_tiers}, EWMA "
+                                 f"{probe_ewma}")
         if not all(r.get("mb_plan") == [TRAIN_MICRO] for r in log):
             raise AssertionError(f"train: plans {[r.get('mb_plan') for r in log]}")
         if ckpt.list_steps(ckpt_dir) != [TRAIN_STEPS]:
@@ -1284,10 +1369,17 @@ def train_main_path(smoke, card):
             "probe_bytes_each": probe_bytes,
             "probe_effective_bw": [x.effective_bw for x in samples],
             "probe_slowdown": [x.slowdown for x in samples],
+            "probe_tier": probe_tiers, "probe_ewma": probe_ewma,
+            "triad_probe_launches": probes,
+            "triad_calibration_launches": calib,
+            "monitor_idle_bw": {nb: nb / t for nb, t in
+                                monitor._idle_s.items()},
+            "monitor_idle_share_of_spec": idle_share,
             "mb_plan": [r["mb_plan"] for r in log],
             "checkpoint_snapshot_s": ck.get("snapshot_s"),
             "checkpoint_write_done_s": ck.get("write_done_s"),
             "checkpoint_bytes_on_disk": on_disk}
+        res["contention"] = contended_probes(smoke, monitor, probe_once)
         batch = {k: torch.as_tensor(v, device=smoke.dev) for k, v in
                  make_batch(tr.tcfg.data, cfg, shape, TRAIN_STEPS).items()}
         res["profile"] = _profile_step(smoke, step_fn, last.pop("state"),
@@ -1321,6 +1413,38 @@ def train_main_path(smoke, card):
           f"{np.round(np.array(r['probe_effective_bw']) / 1e12, 3).tolist()} "
           f"TB/s, slowdown {np.round(r['probe_slowdown'], 3).tolist()} "
           f"(probes of {r['probe_bytes_each']} bytes)")
+    nominal = r["monitor_idle_bw"]
+    cont = res["contention"]
+    print(f"train: triad launches {launches.get('triad', 0)} = "
+          f"{r['triad_probe_launches']} probes + "
+          f"{r['triad_calibration_launches']} calibrating the monitor's "
+          f"nominal at the first probe (best of {_CALIBRATION_PROBES} idle "
+          f"triads at each size the shrink can reach): "
+          + ", ".join(f"{nb >> 20} MiB {bw / 1e12:.4f} TB/s"
+                      for nb, bw in sorted(nominal.items(), reverse=True))
+          + f"; at {r['probe_bytes_each'][0] >> 20} MiB "
+          f"{r['monitor_idle_share_of_spec']:.4f} of the spec HBM_BW {HBM_BW / 1e12:.2f} TB/s (at least "
+          f"{IDLE_NOMINAL_MIN_SHARE}); tiers {probe_tiers}, EWMA "
+          f"{np.round(probe_ewma, 4).tolist()} on {card}")
+    idle, busy, after = cont["idle"], cont["contended"], cont["after"]
+    print(f"monitor: idle card, {len(idle['slowdown'])} probes of "
+          f"{mib_list(idle)} MiB: slowdown "
+          f"{np.round(idle['slowdown'], 4).tolist()} (max "
+          f"{max(idle['slowdown']):.4f}); under a 1 GiB device-to-device "
+          f"copy loop on a second stream ({cont['copy_tb_per_s']:.3f} TB/s "
+          f"alone, "
+          f"{'still running after' if cont['covered'] else 'ENDED BEFORE'} "
+          f"the last probe), probes of {mib_list(busy)} MiB as the "
+          f"monitor shrinks them: slowdown "
+          f"{np.round(busy['slowdown'], 4).tolist()} (min "
+          f"{min(busy['slowdown']):.4f}), EWMA "
+          f"{np.round(busy['ewma'], 4).tolist()}, tiers {busy['tier']}; "
+          f"separated: {cont['separated']} on {card}")
+    print(f"monitor: after the copy loop, probes of {mib_list(after)} MiB: "
+          f"slowdown {np.round(after['slowdown'], 4).tolist()}, EWMA "
+          f"{np.round(after['ewma'], 4).tolist()}, tiers {after['tier']}; "
+          f"calibration triads during the window: "
+          f"{cont['window_calibration_launches']} on {card}")
     print(f"train: checkpoint {ckpt_bytes / 1e9:.2f} GB ({on_disk:,} bytes "
           f"on disk): host snapshot {r['checkpoint_snapshot_s']:.2f} s, "
           f"written {r['checkpoint_write_done_s']:.2f} s after the save "
@@ -1345,6 +1469,58 @@ def train_main_path(smoke, card):
           f"{res['restart']['s']:.1f}, accumulation "
           f"{res['accumulation']['s']:.1f}")
     return res
+
+
+def mib_list(window):
+    return [nb >> 20 for nb in window["probe_bytes"]]
+
+
+def contended_probes(smoke, monitor, probe_once):
+    """The monitor's readings on the idle card, under a co-tenant on the
+    memory and after it.  ``probe_once`` is the monitor's own method,
+    calibrated at its first probe in the training run; the window runs it
+    as shipped, shrinking and restoring the probe size itself.  First
+    `MONITOR_PROBES` idle probes; then as many while a second CUDA stream
+    copies 1 GiB device to device `CONTENTION_COPIES` times; then as many
+    after the copies end.  Fails if any probe of the window calibrates.
+    Separated: every contended slowdown above every idle one."""
+    torch = smoke.torch
+    src = torch.ones(1 << 28, dtype=torch.float32, device=smoke.dev)
+    dst = torch.empty_like(src)
+    side = torch.cuda.Stream(device=smoke.dev)
+    smoke.sync()
+    copy_ms = smoke.timeit(lambda: dst.copy_(src), reps=5)
+    calib = monitor._calibration_launches
+
+    def probes(n):
+        w = {"probe_bytes": [], "slowdown": [], "ewma": [], "tier": []}
+        for _ in range(n):
+            w["probe_bytes"].append(monitor.probe_bytes)
+            w["slowdown"].append(probe_once()[0].slowdown)
+            w["ewma"].append(float(monitor.ewma[0]))
+            w["tier"].append(monitor.device_tiers()[0])
+        return w
+
+    idle = probes(MONITOR_PROBES)
+    with torch.cuda.stream(side):
+        for _ in range(CONTENTION_COPIES):
+            dst.copy_(src)
+        done = torch.cuda.Event()
+        done.record(side)
+    busy = probes(MONITOR_PROBES)
+    covered = not done.query()
+    done.synchronize()
+    after = probes(MONITOR_PROBES)
+    del src, dst
+    window_calib = monitor._calibration_launches - calib
+    if window_calib:
+        raise AssertionError(f"monitor: {window_calib} calibration triads "
+                             f"after the first probe")
+    return {"idle": idle, "contended": busy, "after": after,
+            "covered": covered, "copy_ms": copy_ms,
+            "copy_tb_per_s": 2 * (1 << 30) / copy_ms / 1e9,
+            "window_calibration_launches": window_calib,
+            "separated": min(busy["slowdown"]) > max(idle["slowdown"])}
 
 
 def restart_check(smoke, card):
@@ -1581,8 +1757,8 @@ def lm_kernel_rows(smoke, card, launches):
                   + b * h * p * n)
     t_ops, t_bytes = flops / ALU_OPS_PER_S * 1e3, \
         nbytes / HBM_BYTES_PER_S * 1e3
-    stages = ssd_stage_us(smoke, lambda: ssd_kernel.ssd_scan_grid(
-        x, dt, dA, Bm, Cm))
+    stages, lost, profiles = ssd_stage_us(
+        smoke, lambda: ssd_kernel.ssd_scan_grid(x, dt, dA, Bm, Cm))
     rows.append({
         "name": "ssd_scan", "route": "cuda",
         "source": SOURCES["ssd_scan"][0], "replaces": SOURCES["ssd_scan"][1],
@@ -1597,7 +1773,8 @@ def lm_kernel_rows(smoke, card, launches):
         "bound_ms": max(t_ops, t_bytes),
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
         "library_ms": None, "flops": flops, "bytes": nbytes,
-        "stage_us": stages,
+        "stage_us": stages, "stage_lost": lost,
+        "stage_profiles": profiles,
         "shape": f"({b}, {h}, {nc}, {L}, {p}), n={n}, f32", "card": card})
     return rows
 
@@ -1684,23 +1861,43 @@ def engine_breakdown(smoke, cachesim, runner, main_s, card):
             "by_shape_GBT": dict(sorted(by.items()))}
 
 
+# The SSD kernel's four CUDA kernels (csrc/ssd_scan.cu:112, :160, :248, :280)
+SSD_STAGES = ("ssd_cb", "ssd_states", "ssd_carry", "ssd_out")
+SSD_PROFILES = 3      # profiles of the stages before a missing one is lost
+
+
+def stage_readout(us_by_name):
+    """Each SSD stage's microseconds a launch from the profiler's records
+    (kernel name -> us; other names are ignored) and the stages whose
+    records are missing, in `SSD_STAGES` order.  A missing stage reads
+    None, never a dict that looks whole."""
+    stages = {k: us_by_name.get(k) for k in SSD_STAGES}
+    return stages, [k for k, v in stages.items() if v is None]
+
+
 def ssd_stage_us(smoke, call, reps: int = 5):
     """Device microseconds per launch of each of the SSD kernel's stages
     (its four CUDA kernels, by name), from torch.profiler over ``reps``
-    calls."""
+    calls.  A profile that lacks a stage's records is taken again, up to
+    `SSD_PROFILES` in all; returns (stages, lost, profiles taken), a
+    stage still missing being None in ``stages`` and named in ``lost``."""
     from torch.profiler import ProfilerActivity, profile
     call()
     smoke.sync()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            call()
-        smoke.sync()
-    out = {}
-    for e in prof.key_averages():
-        name = e.key.split("::")[-1].split("(")[0]
-        if str(e.device_type).endswith("CUDA") and name.startswith("ssd_"):
-            out[name] = e.self_device_time_total / e.count
-    return out
+    for n in range(1, SSD_PROFILES + 1):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                call()
+            smoke.sync()
+        seen = {}
+        for e in prof.key_averages():
+            name = e.key.split("::")[-1].split("(")[0]
+            if str(e.device_type).endswith("CUDA") and e.count:
+                seen[name] = e.self_device_time_total / e.count
+        stages, lost = stage_readout(seen)
+        if not lost:
+            break
+    return stages, lost, n
 
 
 def main() -> int:
@@ -1946,10 +2143,39 @@ def main() -> int:
                  "main_by_shape": out["main"]["breakdown"]["by_shape_GBT"],
                  "card": card})
 
-    W, T = 8, 128
-    valid = int((rows_streams >= 0).sum())
-    n = rows_tags.shape[0]
-    b_ms, b_by = bound(n * W * 16 + n * T * 4 + n * T, 2 * W * valid)
+    def lru_case(tags, age, streams, clock0, what, plain=True):
+        """Device time of one `lru_sets` launch beside its bound and, with
+        ``plain``, its plain version (after holding the two equal)."""
+        n_, W_ = tags.shape
+        T_ = streams.shape[1]
+        if plain:
+            smoke._lru_pair(sim_ops, sim_ref, tags, age, streams, clock0,
+                            f"timed {what} {n_}x{W_}x{T_}")
+        valid = int((streams >= 0).sum())
+        b_ms, b_by = bound(n_ * W_ * 16 + n_ * T_ * 4 + n_ * T_,
+                           2 * W_ * valid)
+        ms = smoke.device_ms(lambda: sim_ops.simulate_rows(
+            tags, age, streams, clock0=clock0))
+        return {"shape": [n_, W_, T_], "rows": what, "ms": ms,
+                "us_per_step": ms * 1e3 / T_, "bound_ms": b_ms,
+                "bound_by": b_by,
+                "plain_ms": smoke.timeit(lambda: sim_ref.lru_sets_ref(
+                    tags, age, streams, clock0=clock0), reps=1, warmup=0)
+                if plain else None}
+
+    i32 = torch.int32
+    lru_shapes = [lru_case(rows_tags, rows_age, rows_streams, rows_clock0,
+                           "skylake_sp LLC rows")]
+    for n_, W_, T_ in ((8192, 8, 128), (1024, 16, 512)):
+        args_ = [smoke.t(x, i32) for x in smoke.lru_random_rows(n_, W_, T_)]
+        lru_shapes.append(lru_case(*args_, 1, "random rows"))
+    # one row alone: one warp's chain of touches, whose time a step is the
+    # latency of one touch (the unit of the kernel's floor, T touches)
+    args_ = [smoke.t(x, i32) for x in smoke.lru_random_rows(1, 8, 4096)]
+    touch = lru_case(*args_, 1, "one row", plain=False)
+    for sh in lru_shapes:
+        sh["latency_floor_ms"] = sh["shape"][2] * touch["us_per_step"] / 1e3
+    head = lru_shapes[0]
     rows.append({
         "name": "lru_sets", "route": "cuda",
         "source": SOURCES["lru_sets"][0], "replaces": SOURCES["lru_sets"][1],
@@ -1957,14 +2183,14 @@ def main() -> int:
         "path": "ops.simulate_rows, skylake_sp LLC rows",
         "run_cachex_launches": main_launches.get("lru_sets", 0),
         "max_abs_err": smoke.err["lru_sets"],
-        "ms": smoke.device_ms(lambda: sim_ops.simulate_rows(
-            rows_tags, rows_age, rows_streams, clock0=rows_clock0)),
-        "plain_ms": smoke.timeit(lambda: sim_ref.lru_sets_ref(
-            rows_tags, rows_age, rows_streams, clock0=rows_clock0), reps=1,
-            warmup=0),
-        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-        "shape": f"({n}, {W}) x {T}", "card": card})
+        "ms": head["ms"], "plain_ms": head["plain_ms"],
+        "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+        "library_ms": None, "us_per_step": head["us_per_step"],
+        "latency_floor_ms": head["latency_floor_ms"],
+        "touch_us": touch["us_per_step"], "shapes": lru_shapes,
+        "shape": "({}, {}) x {}".format(*head["shape"]), "card": card})
 
+    W, T = 8, 128
     B = 128
     vt = votes[B]
     valid = int((vt[2] >= 0).sum())
@@ -1993,8 +2219,14 @@ def main() -> int:
               f" ms, bound {r['bound_ms']:.7f} ms by {r['bound_by']}{lib}) "
               f"at {r['shape']}, {r['launches']} launches on its path, on "
               f"{card}")
-    print(f"time ssd_scan stages (device us per launch, torch.profiler): "
-          f"{rows[4]['stage_us']} on {card}")
+    ssd = rows[4]
+    print(f"time ssd_scan stages (device us per launch, torch.profiler, "
+          f"{ssd['stage_profiles']} profile(s)): "
+          + (f"{ssd['stage_us']}" if not ssd["stage_lost"] else
+             f"{ssd['stage_us']}; LOST {ssd['stage_lost']}: the profiler "
+             f"recorded no kernel of those stages in "
+             f"{ssd['stage_profiles']} profiles, so they are not measured")
+          + f" on {card}")
     for sh in rows[3]["shapes"][1:]:
         print(f"time flash_attention {sh['dtype']} {tuple(sh['shape'])}: "
               f"{sh['ms']:.4f} ms (plain {sh['plain_ms']:.2f} ms, bound "
@@ -2021,6 +2253,15 @@ def main() -> int:
           f"it and a synchronize {tr_row['monitor_host_ms'] * 1e3:.2f} us "
           f"({tr_row['monitor_host_tb_per_s']:.3f} TB/s); medians of 10 on "
           f"{card}")
+    lru = rows[1]
+    for sh in lru["shapes"]:
+        print(f"time lru_sets {sh['rows']} {tuple(sh['shape'])} (rows, "
+              f"ways, steps): {sh['ms']:.4f} ms, {sh['us_per_step']:.4f} us "
+              f"a step (plain {sh['plain_ms']:.2f} ms, bound "
+              f"{sh['bound_ms']:.7f} ms by {sh['bound_by']}, latency floor "
+              f"{sh['latency_floor_ms']:.4f} ms = {sh['shape'][2]} touches of "
+              f"{lru['touch_us']:.4f} us, one row's 4096-step chain) on "
+              f"{card}")
     for s in engine_shapes:
         print(f"time cachesim_engine {s['entry']} {s['geometry']} "
               f"{tuple(s['shape'])}, {s['design']} design"

@@ -14,11 +14,11 @@
 //   * the touched way gets tag = blk and age = clk;
 //   * `victim` is the evicted block, -1 on a hit or when an empty way was
 //     filled.
-// Two forms of the same law.  `lru_touch`: one thread owns the row and
-// scans its W ways (`lru_sets`).  `lru_touch_warp`: the 32 lanes of a warp
-// share the row, lane l holding ways l, l + 32, l + 64, ... (any W), so a
-// touch is a few warp votes and reductions instead of a W-long chain of
-// loads (the engine and `prime_probe`).  W is a runtime width in both.
+// The law's CUDA form is the warp touch, `lru_touch_warp`: the 32 lanes
+// of a warp share the row, lane l holding ways l, l + 32, l + 64, ... (any
+// W, a runtime width), so a touch is a few warp votes and reductions
+// instead of a W-long chain of loads.  All three kernels run it, one warp
+// a row (`lru_sets`, `prime_probe`) or a lane (the engine).
 #pragma once
 
 #include <climits>
@@ -30,46 +30,10 @@ struct LruTouch {
   int victim;  // evicted block, -1 if none
 };
 
-__device__ __forceinline__ LruTouch lru_touch(int* __restrict__ tags,
-                                              int* __restrict__ age, int W,
-                                              int blk, int clk,
-                                              int rand_bits) {
-  LruTouch r{0, -1, -1};
-  if (blk < 0) return r;
-  int hit_way = -1, empty_way = -1, lru_way = 0, lru_age = INT_MAX;
-  for (int w = 0; w < W; ++w) {
-    const int t = tags[w];
-    if (t == blk && hit_way < 0) hit_way = w;
-    if (t == -1) {
-      if (empty_way < 0) empty_way = w;
-    } else {
-      const int a = age[w];
-      if (a < lru_age) {
-        lru_age = a;
-        lru_way = w;
-      }
-    }
-  }
-  int way;
-  if (hit_way >= 0) {
-    r.hit = 1;
-    way = hit_way;
-  } else if (empty_way >= 0) {
-    way = empty_way;
-  } else {
-    way = rand_bits >= 0 ? rand_bits % W : lru_way;
-    r.victim = tags[way];
-  }
-  tags[way] = blk;
-  age[way] = clk;
-  r.way = way;
-  return r;
-}
-
 // ---------------------------------------------------------------------------
-// The warp form.  Every lane of the warp calls it with the same blk, clk,
+// The warp touch.  Every lane of the warp calls it with the same blk, clk,
 // rand_way and W, and the full warp must be converged.  Where the
-// one-thread form takes rand_bits, it takes rand_way: the way random
+// reference takes rand_bits, it takes rand_way: the way random
 // replacement evicts (rand_bits % W, which the caller may compute by a
 // cheaper division than `%`), or -1 under LRU.  It has no branch: the
 // hit, empty and LRU ways are all found and the result selected, so two
@@ -79,12 +43,12 @@ __device__ __forceinline__ LruTouch lru_touch(int* __restrict__ tags,
 //   Row::tag_at(way)          any way's tag, the same value in every lane;
 //   Row::set(way, t, a, on)   writes one way if `on`.
 // A row in memory that another lane reads next needs the caller's
-// __syncwarp() after the touch.  First index wins, as in the one-thread
-// form: the hit and empty ways are the lowest set bit of a ballot in the
+// __syncwarp() after the touch.  First index wins, as in the reference:
+// the hit and empty ways are the lowest set bit of a ballot in the
 // first round that has one; the LRU way is the lowest way index whose age
 // equals the warp's minimum age (__reduce_min_sync over each lane's first
-// minimum), and way 0 when every age is INT_MAX, as `lru_way`'s start
-// value above.
+// minimum), and way 0 when every age is INT_MAX, as the reference's
+// argmin over all-equal ages.
 constexpr unsigned kFullWarp = 0xffffffffu;
 
 __device__ __forceinline__ int warp_lane() { return threadIdx.x & 31; }

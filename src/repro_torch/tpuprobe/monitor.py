@@ -13,7 +13,21 @@ probe size when the budget is blown, and qualitative tiers with
 Clock injection: ``clock=None`` times the real kernel on the monitor's
 device (``device`` None means the card); a `SimClock` plays back a
 contention schedule instead, so the control path (probe -> EWMA -> tier
--> rebalance) runs identically on the CPU.  As in the JAX module, every
+-> rebalance) runs identically on the CPU.
+
+The nominal: under a `SimClock` it is the spec sheet's bandwidth
+(`launch.mesh.HBM_BW`), as in the JAX module.  On a device it is the
+triad's own idle time at the probe's size: the first probe takes the
+best of `_CALIBRATION_PROBES` triads at every size the auto-shrink can
+reach (`_probe_sizes`: the default halved down to 1 MiB), and every
+later probe is read against its size's time (slowdown = time / idle
+time = idle rate / effective rate).  A 64 MiB triad moves
+2.5-2.6 TB/s on an idle H100, so the spec's 3.35 TB/s would read a
+slowdown of about 1.3, and a tier, with no co-tenant.  Nothing is
+calibrated after the first probe: a shrink happens under contention,
+and a nominal read then would hide it.  The first probe must therefore
+find the card idle; a co-tenant already running then is read as the
+nominal.  As in the JAX module, every
 device index probes the one device the monitor runs on: ``n_devices``
 probes are ``n_devices`` triad launches there.  Probing each card of a
 node waits for the multi-card slice.
@@ -32,6 +46,23 @@ from repro_torch.core.cas import TierTracker
 from repro_torch.launch.mesh import HBM_BW
 
 __all__ = ["ProbeSample", "SimClock", "PodMonitor"]
+
+#: triads whose best time sets the nominal bandwidth at a probe size
+_CALIBRATION_PROBES = 5
+#: the auto-shrink's smallest probe
+_MIN_PROBE_BYTES = 1 << 20
+
+
+def _shrunk(probe_bytes: int) -> int:
+    return max(probe_bytes // 2, _MIN_PROBE_BYTES)
+
+
+def _probe_sizes(default_bytes: int) -> List[int]:
+    """Every probe size the auto-shrink can reach from the default."""
+    sizes = [default_bytes]
+    while _shrunk(sizes[-1]) not in sizes:
+        sizes.append(_shrunk(sizes[-1]))
+    return sizes
 
 
 @dataclasses.dataclass
@@ -81,24 +112,44 @@ class PodMonitor:
         self.tiers = TierTracker(keys=list(range(n_devices)),
                                  thresholds=list(tier_thresholds))
         self.history: List[List[ProbeSample]] = []
+        self._idle_s: Dict[int, float] = {}     # probe bytes -> seconds
+        self._calibration_launches = 0          # triads the nominal took
+
+    # -- the nominal on a device -------------------------------------------------
+    def _triad_seconds(self, n_bytes: int) -> float:
+        from repro_torch.kernels.cache_probe import ops
+        return ops.measure_hbm_bandwidth(n_bytes, reps=1,
+                                         device=self.device)[1]
+
+    def _idle_seconds(self) -> float:
+        """The idle triad's seconds at the current probe size.  The first
+        call calibrates every size the shrink can reach, each the best of
+        `_CALIBRATION_PROBES` triads; later calls only read them."""
+        if not self._idle_s:
+            from repro_torch import _build
+            before = _build.LAUNCHES["triad"] + _build.PLAIN_CALLS["triad"]
+            for nb in _probe_sizes(self.default_probe_bytes):
+                self._idle_s[nb] = min(self._triad_seconds(nb)
+                                       for _ in range(_CALIBRATION_PROBES))
+            self._calibration_launches += (_build.LAUNCHES["triad"]
+                                           + _build.PLAIN_CALLS["triad"]
+                                           - before)
+        return self._idle_s[self.probe_bytes]
 
     # -- one monitoring interval ------------------------------------------------
     def probe_once(self) -> List[ProbeSample]:
-        nominal_s = self.probe_bytes / HBM_BW
+        nominal_s = (self.probe_bytes / HBM_BW if self.clock is not None
+                     else self._idle_seconds())
         samples = []
         for d in range(self.n_devices):
             if self.clock is not None:
                 dt = self.clock.probe_time(d, nominal_s)
                 t = self.clock.t
             else:  # real hardware: time the triad kernel on the card
-                from repro_torch.kernels.cache_probe.ops import \
-                    measure_hbm_bandwidth
-                _, dt = measure_hbm_bandwidth(self.probe_bytes, reps=1,
-                                              device=self.device)
+                dt = self._triad_seconds(self.probe_bytes)
                 t = time.time()
             eff = self.probe_bytes / max(dt, 1e-12)
-            slow = max(1.0, HBM_BW / eff) if self.clock is None else \
-                max(1.0, dt / nominal_s)
+            slow = max(1.0, dt / nominal_s)
             samples.append(ProbeSample(device=d, effective_bw=eff,
                                        slowdown=slow, t=t))
         slows = np.array([s.slowdown for s in samples])
@@ -108,7 +159,7 @@ class PodMonitor:
         # auto-shrink (paper §3.3): if the probe budget is blown everywhere,
         # halve the probe size; restore when quiet
         if float(slows.min()) > 2.0:
-            self.probe_bytes = max(self.probe_bytes // 2, 1 << 20)
+            self.probe_bytes = _shrunk(self.probe_bytes)
         elif float(slows.max()) < 1.05:
             self.probe_bytes = self.default_probe_bytes
         self.history.append(samples)

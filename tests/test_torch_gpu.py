@@ -6,6 +6,8 @@ skips without one; run them on a card with
 """
 
 import dataclasses
+import functools
+import importlib.util
 import json
 from pathlib import Path
 
@@ -41,6 +43,17 @@ def _on(dev, a):
     return torch.as_tensor(np.array(a), device=dev)
 
 
+@functools.lru_cache(maxsize=None)
+def _chip_smoke():
+    """chip_smoke.py as a module: its input generators are shared with
+    these tests."""
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 @pytest.mark.parametrize("rows,ways,T,seed", [(4, 4, 1, 0), (64, 8, 33, 1),
                                               (1024, 8, 128, 2),
                                               (100, 16, 40, 3)])
@@ -57,6 +70,25 @@ def test_lru_sets_kernel_matches_plain(rows, ways, T, seed):
     assert _build.LAUNCHES["lru_sets"] == n0 + 1
     for g, w in zip(got, sim_ref.lru_sets_ref(*args, clock0=200)):
         assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("T", [1, 31, 32, 33, 128])
+@pytest.mark.parametrize("W", [1, 4, 8, 11, 16, 32, 33, 40, 100, 200, 300])
+def test_lru_sets_warp_kernel_widths_and_edges(W, T):
+    """The warp design at every row holder (one to eight registers a lane,
+    the row in memory past 256 ways) and across stream chunks of 32: 37
+    rows (not a multiple of the block's four), tied ages, rows full and
+    half empty, -1 runs mid-stream, hits and misses, at clock0 1 and
+    1000; bit for bit against `lru_sets_ref`, one launch a call."""
+    dev = _card()
+    tags, age, streams = _chip_smoke().Smoke.lru_edge_rows(37, W, T)
+    args = [_on(dev, x) for x in (tags, age, streams)]
+    for clock0 in (1, 1000):
+        n0 = _build.LAUNCHES["lru_sets"]
+        got = sim_ops.simulate_rows(*args, clock0=clock0)
+        assert _build.LAUNCHES["lru_sets"] == n0 + 1
+        for g, w in zip(got, sim_ref.lru_sets_ref(*args, clock0=clock0)):
+            assert torch.equal(g, w)
 
 
 @pytest.mark.parametrize("B,W,T,seed", [(8, 4, 24, 0), (128, 8, 128, 1),
@@ -454,6 +486,14 @@ def test_triad_kernel_ragged_and_misaligned():
                            probe_ref.triad_ref(a, b, s))
 
 
+def _calibration_launches(mon):
+    """The triads of one calibration: five at each size the shrink can
+    reach."""
+    from repro_torch.tpuprobe import monitor
+    return monitor._CALIBRATION_PROBES * len(
+        monitor._probe_sizes(mon.default_probe_bytes))
+
+
 def test_measure_bandwidth_and_monitor_launch_the_triad():
     from repro_torch.tpuprobe.monitor import PodMonitor
     _card()
@@ -464,14 +504,22 @@ def test_measure_bandwidth_and_monitor_launch_the_triad():
     mon = PodMonitor(2)
     _build.reset_counters()
     samples = mon.probe_once()
-    assert _build.LAUNCHES["triad"] == 2 and not _build.PLAIN_CALLS
+    # the first probe calibrates the nominal with its own triads, at each
+    # size the shrink can reach, and no later probe does
+    assert mon._calibration_launches == _calibration_launches(mon)
+    assert _build.LAUNCHES["triad"] == mon._calibration_launches + 2
+    assert not _build.PLAIN_CALLS
     assert all(s.effective_bw > 0 and s.slowdown >= 1.0 for s in samples)
+    mon.probe_once()
+    assert _build.LAUNCHES["triad"] == mon._calibration_launches + 4
+    assert mon._calibration_launches == _calibration_launches(mon)
 
 
 def test_reduced_training_on_the_card(tmp_path):
     """Trainer.run of reduced qwen1.5-0.5b on the card with the real
-    monitor: finite losses, one triad launch per step, the plan recorded,
-    and the LM kernels refuse gradients there too."""
+    monitor: finite losses, one triad launch per step besides the
+    monitor's calibration, the plan recorded, and the LM kernels refuse
+    gradients there too."""
     from repro_torch.configs.base import ShapeSpec, get_config, reduced_config
     from repro_torch.models import attention, lm
     from repro_torch.tpuprobe.monitor import PodMonitor
@@ -484,7 +532,9 @@ def test_reduced_training_on_the_card(tmp_path):
                  TrainerConfig(ckpt_dir=str(tmp_path)), monitor=PodMonitor(1))
     _build.reset_counters()
     log = tr.run(4)
-    assert _build.LAUNCHES["triad"] == 4 and not _build.PLAIN_CALLS
+    calib = tr.monitor._calibration_launches
+    assert calib == _calibration_launches(tr.monitor)
+    assert _build.LAUNCHES["triad"] == 4 + calib and not _build.PLAIN_CALLS
     assert all(np.isfinite(r["loss"]) and r["mb_plan"] == [2] for r in log)
     acfg = lm.attn_config(cfg)
     params = attention.init_attention(torch.Generator(device=dev), acfg)

@@ -171,14 +171,142 @@ def test_monitor_autoshrink_and_restore():
 
 def test_monitor_probes_the_plain_triad_on_the_cpu():
     """clock=None times the triad on the monitor's device: on the CPU the
-    plain version, once per device index."""
+    plain version, once per device index, after the first probe has
+    calibrated the nominal at each size the shrink can reach (768 KiB
+    and the 1 MiB floor), counting its own triads; the second probe
+    calibrates nothing."""
     mon = tmon.PodMonitor(3, device="cpu", probe_bytes=3 * (1 << 18))
+    assert tmon._probe_sizes(mon.default_probe_bytes) == [3 << 18, 1 << 20]
     _build.reset_counters()
     samples = mon.probe_once()
-    assert _build.PLAIN_CALLS["triad"] == 3 and not _build.LAUNCHES
+    calib = 2 * tmon._CALIBRATION_PROBES
+    assert mon._calibration_launches == calib
+    assert _build.PLAIN_CALLS["triad"] == calib + 3 and not _build.LAUNCHES
     assert [s.device for s in samples] == [0, 1, 2]
     assert all(s.effective_bw > 0 and s.slowdown >= 1.0 for s in samples)
     assert len(mon.history) == 1
+    mon.probe_once()
+    assert _build.PLAIN_CALLS["triad"] == calib + 6
+    assert mon._calibration_launches == calib
+
+
+# -- the monitor on a device: the nominal is the idle triad's rate ---------------
+
+MiB = 1 << 20
+SIZES = [64 * MiB, 32 * MiB, 16 * MiB, 8 * MiB, 4 * MiB, 2 * MiB, MiB]
+
+
+def _idle_us(n_bytes):
+    """A stand-in idle triad: 25.4 us at 64 MiB, with 2 us of fixed cost,
+    so each size has its own rate (2.64 TB/s at 64 MiB, 0.38 at 1 MiB)."""
+    return 2.0 + 23.4 * n_bytes / (64 * MiB)
+
+
+class _Triads:
+    """Stands in for `measure_hbm_bandwidth`: call i takes ``factors[i]``
+    times the idle triad at the size asked, and the sizes asked are
+    kept."""
+
+    def __init__(self, factors):
+        self.factors = list(factors)
+        self.sizes = []
+
+    def __call__(self, n_bytes, reps=3, device=None):
+        assert reps == 1
+        dt = self.factors[len(self.sizes)] * _idle_us(n_bytes) * 1e-6
+        self.sizes.append(n_bytes)
+        return n_bytes / dt, dt
+
+
+CALIB = [1.02, 1.0, 1.02, 1.01, 1.005]          # each size's best: 1.0x idle
+
+
+def _device_monitor(monkeypatch, probe_factors):
+    triads = _Triads(CALIB * len(SIZES) + list(probe_factors))
+    monkeypatch.setattr(ops, "measure_hbm_bandwidth", triads)
+    return tmon.PodMonitor(1, device="cpu"), triads
+
+
+def _probe(mon, n):
+    slows, tiers = [], []
+    for _ in range(n):
+        slows.append(mon.probe_once()[0].slowdown)
+        tiers.append(mon.device_tiers()[0])
+    return slows, tiers
+
+
+def test_monitor_idle_triads_stay_in_tier_0(monkeypatch):
+    """Idle probes within 4% of the best calibration triad: slowdowns
+    are the ratio to it (at most 1.04, none below 1), the EWMA stays
+    below tier 1's 1.15 and the tier at 0.  The spec-sheet nominal
+    (3.35e12 B/s) would have read 1.2+ from the same times."""
+    probe = [1.0, 1.04, 1.02, 0.985, 1.03, 1.01, 1.025, 1.005]
+    mon, triads = _device_monitor(monkeypatch, probe)
+    slows, tiers = _probe(mon, len(probe))
+    np.testing.assert_allclose(slows, [max(1.0, f) for f in probe],
+                               rtol=1e-12)
+    assert max(slows) < 1.05 and tiers == [0] * len(probe)
+    assert float(mon.ewma[0]) < 1.15
+    idle_bw = (64 * MiB) / (_idle_us(64 * MiB) * 1e-6)
+    assert tmesh.HBM_BW / idle_bw > 1.2
+    assert len(triads.sizes) == len(CALIB) * len(SIZES) + len(probe)
+
+
+def test_monitor_contended_triads_reach_tier_1(monkeypatch):
+    """Probes 1.5x the idle triad read a slowdown of 1.5 and, after the
+    EWMA crosses 1.15 and three intervals of hysteresis, tier 1; the
+    probe size stays (no slowdown above 2)."""
+    mon, _ = _device_monitor(monkeypatch, [1.5] * 8)
+    slows, tiers = _probe(mon, 8)
+    np.testing.assert_allclose(slows, [1.5] * 8, rtol=1e-12)
+    assert tiers[0] == 0 and tiers[-1] == 1
+    assert mon.slow_devices() == [0]
+    assert mon.probe_bytes == mon.default_probe_bytes
+
+
+def test_monitor_calibrates_each_probe_size_once(monkeypatch):
+    """The first probe calibrates every size the shrink can reach, 64 MiB
+    down to 1 MiB, five triads each, while the card is idle.  Under 3x
+    contention the size halves twice, and the smaller sizes still read
+    3, against their own idle times, not 1; a quiet probe restores 64
+    MiB; no probe after the first calibrates anything."""
+    probe = [3.0, 3.0, 3.0,             # 64, 32, 16 MiB under contention
+             1.01,                      # 8 MiB, quiet: restore
+             1.0, 1.02]                 # 64 MiB
+    mon, triads = _device_monitor(monkeypatch, probe)
+    assert tmon._probe_sizes(mon.default_probe_bytes) == SIZES
+    sizes, slows = [], []
+    for _ in probe:
+        sizes.append(mon.probe_bytes)
+        slows.append(mon.probe_once()[0].slowdown)
+    assert sizes == [64 * MiB, 32 * MiB, 16 * MiB, 8 * MiB, 64 * MiB,
+                     64 * MiB]
+    np.testing.assert_allclose(slows, [3.0, 3.0, 3.0, 1.01, 1.0, 1.02],
+                               rtol=1e-12)
+    n_cal = len(CALIB) * len(SIZES)
+    assert triads.sizes[:n_cal] == [nb for nb in SIZES
+                                    for _ in range(len(CALIB))]
+    assert triads.sizes[n_cal:] == sizes           # one triad a probe
+    assert sorted(mon._idle_s) == sorted(SIZES)
+    for nb in SIZES:
+        assert mon._idle_s[nb] == pytest.approx(_idle_us(nb) * 1e-6,
+                                                rel=1e-12)
+    assert mon._calibration_launches == 0      # the stub launches nothing
+
+
+def test_monitor_under_simclock_never_calibrates(monkeypatch):
+    """A SimClock monitor reads against the spec nominal, as the JAX
+    monitor does, and times no triad."""
+    triads = _Triads([])
+    monkeypatch.setattr(ops, "measure_hbm_bandwidth", triads)
+    monkeypatch.setattr(tmon, "HBM_BW", jmesh.HBM_BW)
+    got = _drive(tmon, _shrink_then_restore, 2)
+    want = _drive(jmon, _shrink_then_restore, 2)
+    assert triads.sizes == []
+    for (gs, ge, gt, gb, gsl), (ws, we, wt, wb, wsl) in zip(got, want):
+        assert gs == ws
+        np.testing.assert_array_equal(ge, we)
+        assert (gt, gb, gsl) == (wt, wb, wsl)
 
 
 # -- rebalance -----------------------------------------------------------------------
