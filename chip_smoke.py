@@ -31,14 +31,29 @@ Four phases, in order; any failure exits non-zero:
              prefill shapes; `triad` against `triad_ref` (bit for bit) at
              the shapes of tests/test_kernels.py, the monitor's 64 MiB
              probe (43,688 rows) and 1 GiB;
-3. main    — three paths, each with the launch counters set to 0 just
-             before it and read just after:
+3. main    — four paths, each check with the launch counters set to 0
+             just before it and read just after:
              (i) `run_cachex("skylake_sp")`: the report must equal
              tests/data/torch_golden_run_cachex_skylake_sp.json, the engine
              kernel must have launched once per engine call (361) and the
              plain engine never; then the two LRU kernels through their own
              entry points (`simulate_rows`, `probe_verdicts`) at the main
-             path's shapes;
+             path's shapes; then `run_matrix` on each of the six
+             platforms against the goldens the JAX package wrote, the
+             engine launched once a physical dispatch;
+             (iv) the closed loop: `vtop.infer_llc_domains` on
+             skylake_sp's fleet guest equal to the hypercall map;
+             `run_fleet_matrix()` (six platforms x four policy/CAP
+             combos, lockstep) equal to the golden (rel 1e-5 on the
+             four fields through `fleet_interval_progress`, exact
+             elsewhere), Fig 10 on 6/6 platforms and CAP's working-set
+             latency under half of CAP off's; the 18-interval attack
+             fleet equal to its golden, one defense, no false drift;
+             `ShardedFleet("skylake_sp", 64)` with the automatic shard,
+             64 and 8, per guest bit-identical; `tune_lowering`
+             measured on the card for skylake_sp and milan_ccx; a tuned
+             skylake_sp fleet equal to the untuned golden; the plan cost
+             model's three constants measured for the engine;
              (ii) serving zamba2-2.7b at full width and depth (54 layers,
              d_model 2560, f32 weights from a seeded torch.Generator on the
              card): `lm.prefill` of 2 x 2048 tokens in f32 and in bf16,
@@ -64,8 +79,10 @@ Four phases, in order; any failure exits non-zero:
              probe of the idle card, a plan every step, a 7.4 GB
              checkpoint written and deleted; the monitor's slowdowns on
              the idle card, while a second CUDA stream copies 1 GiB
-             device to device in a loop, and after it, the monitor
-             shrinking and restoring its probe as shipped; then a restart check
+             device to device in a loop (where a fresh monitor's first
+             probe must warn of a contended nominal; the idle run must
+             not), and after it, the monitor shrinking and restoring its
+             probe as shipped; then a restart check
              on reduced qwen1.5-0.5b (2 steps, resume, equal to 4
              continuous steps, deterministic algorithms) and an
              accumulation check at full width in f32 (1 vs 2
@@ -81,8 +98,9 @@ Four phases, in order; any failure exits non-zero:
              three times and any stage still missing named as lost), and
              prints one `{"kernels": [...]}` line.
 
-The line before the last is `nvidia-smi`'s name and power limit of the
-card; the last line is `{"ok": true, "device": {...}}`.  Without a CUDA
+Before the kernels line, a `cost constants:` line; the line before the
+last is `nvidia-smi`'s name and power limit of the card; the last line is
+`{"ok": true, "device": {...}}`.  Without a CUDA
 device the script exits non-zero and prints no result.
 """
 
@@ -100,6 +118,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -1164,10 +1183,6 @@ TRAIN_START_MAX_BYTES = 1 << 30
 # (about 0.72 ms each alone: they outlast the probes)
 MONITOR_PROBES = 10
 CONTENTION_COPIES = 1000
-# The least share of the spec bandwidth (3.35 TB/s) that the monitor's
-# idle 64 MiB nominal may have: an idle H100 80GB HBM3 moves 2.47-2.64
-# TB/s there (0.74-0.79), a card under a co-tenant's copy loop far less.
-IDLE_NOMINAL_MIN_SHARE = 0.7
 
 
 def matmul_params(cfg):
@@ -1219,8 +1234,9 @@ def train_main_path(smoke, card):
     from repro_torch.configs.base import ShapeSpec, get_config
     from repro_torch.data.pipeline import DataConfig, make_batch
     from repro_torch.launch.mesh import HBM_BW
-    from repro_torch.tpuprobe.monitor import (_CALIBRATION_PROBES, PodMonitor,
-                                              _probe_sizes)
+    from repro_torch.tpuprobe.monitor import (_CALIBRATION_PROBES,
+                                              _IDLE_NOMINAL_MIN_SHARE,
+                                              PodMonitor, _probe_sizes)
     from repro_torch.train import train_step as ts
     from repro_torch.train.trainer import Trainer, TrainerConfig
     start = torch.cuda.memory_allocated()
@@ -1299,9 +1315,17 @@ def train_main_path(smoke, card):
         res["setup_s"] = time.perf_counter() - t_setup
         _build.reset_counters()
         t0 = time.perf_counter()
-        log = tr.run(TRAIN_STEPS, seed=0)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            log = tr.run(TRAIN_STEPS, seed=0)
         run_s = time.perf_counter() - t0
+        nominal_warnings = monitor_warnings(caught)
+        if nominal_warnings:
+            raise AssertionError(f"train: the monitor warned of a contended "
+                                 f"nominal on the idle card: "
+                                 f"{nominal_warnings}")
         launches, plain = dict(_build.LAUNCHES), dict(_build.PLAIN_CALLS)
+        repeats = _build.REPEATED_LAUNCHES["triad"]
         peak = torch.cuda.max_memory_allocated()
         probes = len(monitor.history)
 
@@ -1315,23 +1339,30 @@ def train_main_path(smoke, card):
         calib = monitor._calibration_launches
         sizes = _probe_sizes(monitor.default_probe_bytes)
         want_calib = _CALIBRATION_PROBES * len(sizes)
-        if probes != TRAIN_STEPS or calib != want_calib \
-                or launches != {"triad": probes + calib} or plain:
+        # a timed triad whose start event passed before the host had
+        # enqueued it is taken again (`triad_device_seconds`): those
+        # launches are real and counted apart
+        if probes != TRAIN_STEPS \
+                or not want_calib <= calib <= want_calib + repeats \
+                or launches != {"triad": probes + want_calib + repeats} \
+                or plain:
             raise AssertionError(f"train: {probes} probes, launches "
                                  f"{launches} ({calib} calibrating the "
-                                 f"nominal), plain calls {plain}; expected "
+                                 f"nominal, {repeats} repeating a timed "
+                                 f"reading), plain calls {plain}; expected "
                                  f"one triad launch per probe besides "
                                  f"{want_calib} calibrating it "
                                  f"({_CALIBRATION_PROBES} at each of "
-                                 f"{len(sizes)} sizes), and no plain call")
+                                 f"{len(sizes)} sizes) and the repeats, "
+                                 f"and no plain call")
         idle_share = (monitor.default_probe_bytes / HBM_BW
                       / monitor._idle_s[monitor.default_probe_bytes])
-        if idle_share < IDLE_NOMINAL_MIN_SHARE:
+        if idle_share < _IDLE_NOMINAL_MIN_SHARE:
             raise AssertionError(f"train: the monitor's idle nominal at "
                                  f"{monitor.default_probe_bytes >> 20} MiB "
                                  f"is {idle_share:.3f} of the spec "
                                  f"{HBM_BW / 1e12:.2f} TB/s, below "
-                                 f"{IDLE_NOMINAL_MIN_SHARE}: was the card "
+                                 f"{_IDLE_NOMINAL_MIN_SHARE}: was the card "
                                  f"busy when it calibrated?")
         if any(probe_tiers) or max(probe_ewma) >= 1.15:
             raise AssertionError(f"train: the monitor reads contention on "
@@ -1372,6 +1403,7 @@ def train_main_path(smoke, card):
             "probe_tier": probe_tiers, "probe_ewma": probe_ewma,
             "triad_probe_launches": probes,
             "triad_calibration_launches": calib,
+            "triad_repeated_launches": repeats,
             "monitor_idle_bw": {nb: nb / t for nb, t in
                                 monitor._idle_s.items()},
             "monitor_idle_share_of_spec": idle_share,
@@ -1419,12 +1451,14 @@ def train_main_path(smoke, card):
           f"{r['triad_probe_launches']} probes + "
           f"{r['triad_calibration_launches']} calibrating the monitor's "
           f"nominal at the first probe (best of {_CALIBRATION_PROBES} idle "
-          f"triads at each size the shrink can reach): "
+          f"triads at each size the shrink can reach; "
+          f"{r['triad_repeated_launches']} of all repeated a timed reading "
+          f"the host had not enqueued in time): "
           + ", ".join(f"{nb >> 20} MiB {bw / 1e12:.4f} TB/s"
                       for nb, bw in sorted(nominal.items(), reverse=True))
           + f"; at {r['probe_bytes_each'][0] >> 20} MiB "
           f"{r['monitor_idle_share_of_spec']:.4f} of the spec HBM_BW {HBM_BW / 1e12:.2f} TB/s (at least "
-          f"{IDLE_NOMINAL_MIN_SHARE}); tiers {probe_tiers}, EWMA "
+          f"{_IDLE_NOMINAL_MIN_SHARE}, no warning); tiers {probe_tiers}, EWMA "
           f"{np.round(probe_ewma, 4).tolist()} on {card}")
     idle, busy, after = cont["idle"], cont["contended"], cont["after"]
     print(f"monitor: idle card, {len(idle['slowdown'])} probes of "
@@ -1445,6 +1479,10 @@ def train_main_path(smoke, card):
           f"{np.round(after['ewma'], 4).tolist()}, tiers {after['tier']}; "
           f"calibration triads during the window: "
           f"{cont['window_calibration_launches']} on {card}")
+    print(f"monitor: a fresh monitor calibrating under the copy loop "
+          f"(copies still running after it: {cont['fresh_covered']}) read a "
+          f"{cont['fresh_nominal_tb_per_s']:.4f} TB/s nominal and warned: "
+          f"{cont['fresh_warning']!r}")
     print(f"train: checkpoint {ckpt_bytes / 1e9:.2f} GB ({on_disk:,} bytes "
           f"on disk): host snapshot {r['checkpoint_snapshot_s']:.2f} s, "
           f"written {r['checkpoint_write_done_s']:.2f} s after the save "
@@ -1475,6 +1513,13 @@ def mib_list(window):
     return [nb >> 20 for nb in window["probe_bytes"]]
 
 
+def monitor_warnings(caught) -> list:
+    """The monitor's contended-nominal warnings among ``caught``."""
+    return [str(w.message) for w in caught
+            if issubclass(w.category, RuntimeWarning)
+            and str(w.message).startswith("PodMonitor:")]
+
+
 def contended_probes(smoke, monitor, probe_once):
     """The monitor's readings on the idle card, under a co-tenant on the
     memory and after it.  ``probe_once`` is the monitor's own method,
@@ -1482,8 +1527,12 @@ def contended_probes(smoke, monitor, probe_once):
     as shipped, shrinking and restoring the probe size itself.  First
     `MONITOR_PROBES` idle probes; then as many while a second CUDA stream
     copies 1 GiB device to device `CONTENTION_COPIES` times; then as many
-    after the copies end.  Fails if any probe of the window calibrates.
-    Separated: every contended slowdown above every idle one."""
+    after the copies end.  Fails if any probe of the trained monitor
+    calibrates in the window.  Separated: every contended slowdown above
+    every idle one.  Then a second copy loop, under which a fresh
+    monitor's first probe calibrates: it must warn once of a contended
+    nominal."""
+    from repro_torch.tpuprobe.monitor import PodMonitor
     torch = smoke.torch
     src = torch.ones(1 << 28, dtype=torch.float32, device=smoke.dev)
     dst = torch.empty_like(src)
@@ -1501,16 +1550,36 @@ def contended_probes(smoke, monitor, probe_once):
             w["tier"].append(monitor.device_tiers()[0])
         return w
 
+    def copy_loop():
+        with torch.cuda.stream(side):
+            for _ in range(CONTENTION_COPIES):
+                dst.copy_(src)
+            done = torch.cuda.Event()
+            done.record(side)
+        return done
+
     idle = probes(MONITOR_PROBES)
-    with torch.cuda.stream(side):
-        for _ in range(CONTENTION_COPIES):
-            dst.copy_(src)
-        done = torch.cuda.Event()
-        done.record(side)
+    done = copy_loop()
     busy = probes(MONITOR_PROBES)
     covered = not done.query()
     done.synchronize()
     after = probes(MONITOR_PROBES)
+    # a second copy loop, for a fresh monitor whose first probe
+    # calibrates under it: it must warn once of a contended nominal
+    done = copy_loop()
+    fresh = PodMonitor(1, device=smoke.dev)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        fresh.probe_once()
+    fresh_warnings = monitor_warnings(caught)
+    fresh_covered = not done.query()
+    done.synchronize()
+    if len(fresh_warnings) != 1:
+        raise AssertionError(f"monitor: a fresh monitor calibrating under "
+                             f"the copy loop gave {fresh_warnings}, not one "
+                             f"contended-nominal warning (copies still "
+                             f"running after it: {fresh_covered})")
+    fresh_nb = fresh.default_probe_bytes
     del src, dst
     window_calib = monitor._calibration_launches - calib
     if window_calib:
@@ -1518,6 +1587,9 @@ def contended_probes(smoke, monitor, probe_once):
                              f"after the first probe")
     return {"idle": idle, "contended": busy, "after": after,
             "covered": covered, "copy_ms": copy_ms,
+            "fresh_warning": fresh_warnings[0],
+            "fresh_nominal_tb_per_s": fresh_nb / fresh._idle_s[fresh_nb]
+            / 1e12, "fresh_covered": fresh_covered,
             "copy_tb_per_s": 2 * (1 << 30) / copy_ms / 1e9,
             "window_calibration_launches": window_calib,
             "separated": min(busy["slowdown"]) > max(idle["slowdown"])}
@@ -1900,6 +1972,442 @@ def ssd_stage_us(smoke, call, reps: int = 5):
     return stages, lost, n
 
 
+# -- run_cachex on every platform, and the closed loop (phase 3 (i), (iv)) -------
+
+DATA = ROOT / "tests" / "data"
+SHARDED_GUESTS = 64
+TUNE_PLATFORMS = ("skylake_sp", "milan_ccx")
+TUNE_GUESTS = 4
+# CAP on against off under CAS (Table 8's shape): the working set's
+# measured latency with CAP at most half of that without
+CAP_LAT_RATIO = 0.5
+# padded (lanes, steps) shapes the cost constants are measured at: each
+# a new shape once, then repeated; `COST_SLOPE_SHAPES` span the work
+COST_NEW_SHAPES = ((16, 64), (64, 32), (256, 64), (32, 512), (128, 256))
+COST_SLOPE_SHAPES = ((8, 32), (8, 128), (32, 128), (128, 128), (128, 512),
+                     (512, 256), (512, 512))
+COST_REPS = 15
+COST_NAMES = ("COMPILE_S", "DISPATCH_OVERHEAD_S", "STEP_COST_S")
+
+
+@functools.lru_cache(maxsize=None)
+def goldens():
+    """tests/torch_goldens.py as a module: the golden format
+    (`report_fields`) and the comparison of a fleet report with its golden
+    (`fleet_mismatches`, rel `FLEET_RTOL` on `FLEET_FLOAT_FIELDS`, exact
+    elsewhere), which the CPU tests use too.  It imports the JAX package
+    only in the functions that write goldens, which this script never
+    calls."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "torch_goldens", DATA.parent / "torch_goldens.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def engine_dispatches() -> int:
+    """Physical engine dispatches so far: each one, probe or co-tenant
+    window, notes its padded shape in `plancost.SHAPE_CACHE`."""
+    from repro_torch.core.plancost import SHAPE_CACHE
+    return SHAPE_CACHE.hits + SHAPE_CACHE.misses
+
+
+def counted(smoke, fn):
+    """Run ``fn`` with the launch counters set to 0 just before it and
+    read just after: (its result, the engine's launches, the physical
+    dispatches, the plain engine calls, the other launches, seconds)."""
+    from repro_torch import _build
+    _build.reset_counters()
+    d0 = engine_dispatches()
+    t0 = time.perf_counter()
+    res = fn()
+    smoke.sync()
+    acct = {"s": time.perf_counter() - t0,
+            "engine_launches": _build.LAUNCHES.get("cachesim_engine", 0),
+            "physical_dispatches": engine_dispatches() - d0,
+            "plain_engine_calls": _build.PLAIN_CALLS.get("cachesim_engine",
+                                                         0),
+            "other_launches": {k: v for k, v in _build.LAUNCHES.items()
+                               if k != "cachesim_engine" and v}}
+    return res, acct
+
+
+def require_engine(what: str, acct: dict, exact: bool = True) -> None:
+    """The engine kernel ran the path: it launched once a physical
+    dispatch (``exact``; at least that often otherwise), nothing else
+    launched, and no plain engine call."""
+    n, d = acct["engine_launches"], acct["physical_dispatches"]
+    if (not n or acct["plain_engine_calls"] or acct["other_launches"]
+            or (n != d if exact else n < d)):
+        raise AssertionError(f"{what}: {n} engine launches against {d} "
+                             f"physical dispatches, "
+                             f"{acct['plain_engine_calls']} plain engine "
+                             f"calls, other launches "
+                             f"{acct['other_launches']}")
+
+
+def run_cachex_all(smoke, runner, card):
+    """Phase 3 (i) on every platform: `run_matrix` one platform at a time
+    (the counters set to 0 around each) against the goldens the JAX
+    package wrote."""
+    from repro_torch.core.platforms import list_platforms
+    rows = {}
+    for name in list_platforms():
+        reports, acct = counted(smoke, lambda: runner.run_matrix(
+            [name], device=smoke.dev))
+        got = goldens().report_fields(reports[0])
+        path = DATA / f"torch_golden_run_cachex_{name}.json"
+        want = json.loads(path.read_text())
+        if got != want:
+            bad = {k: (got.get(k), want.get(k)) for k in set(got) | set(want)
+                   if got.get(k) != want.get(k)}
+            raise AssertionError(f"run_cachex({name}) differs from "
+                                 f"{path.name}: {bad}")
+        require_engine(f"run_cachex({name})", acct)
+        if name == "skylake_sp" and \
+                acct["physical_dispatches"] != MAIN_PATH_ENGINE_CALLS:
+            raise AssertionError(f"run_cachex(skylake_sp): "
+                                 f"{acct['physical_dispatches']} engine "
+                                 f"dispatches, not {MAIN_PATH_ENGINE_CALLS}")
+        rows[name] = dict(acct, probe_dispatches=got["dispatches"])
+    print(f"main: run_matrix on {card}, each platform equal to its golden "
+          f"report; engine launches (= physical dispatches, probes + "
+          f"co-tenant windows), seconds: "
+          + ", ".join(f"{n} {r['engine_launches']} ({r['probe_dispatches']}"
+                      f" probes) {r['s']:.3f} s" for n, r in rows.items())
+          + f"; no plain engine call, on {card}")
+    return rows
+
+
+def measure_cost_constants(smoke, card):
+    """The plan cost model's three device constants for the CUDA engine,
+    on a scratch skylake_sp VM on the card, host clock around each
+    dispatch (each ends in its synchronizing copy):
+    ``DISPATCH_OVERHEAD_S`` the median seconds of a minimal dispatch (one
+    lane of one access, padded to (8, 32)); ``COMPILE_S`` the median over
+    `COST_NEW_SHAPES` of a new padded shape's first dispatch less the
+    median of its repeats; ``STEP_COST_S`` the least-squares slope of
+    the median dispatch seconds over padded lane-work elements across
+    `COST_SLOPE_SHAPES`."""
+    from repro_torch.core import plancost
+    from repro_torch.core.platforms import get_platform
+    vm = plancost._scratch_vm(get_platform("skylake_sp"), 0, smoke.dev)
+
+    def lanes(b, t):
+        return plancost._cutout_lanes(vm, b, t)
+
+    def secs(ls, reps):
+        out = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            vm.timed_access_batch(ls, vcpu=0)
+            out.append(time.perf_counter() - t0)
+        return out
+
+    one = [lanes(1, 1)[0]]
+    secs(one, 3)                                   # the process warms up
+    minimal = float(np.median(secs(one, 4 * COST_REPS)))
+    extra = []
+    for b, t in COST_NEW_SHAPES:
+        ls = lanes(b, t)
+        first = secs(ls, 1)[0]
+        extra.append(first - float(np.median(secs(ls, COST_REPS))))
+    xs, ys = [], []
+    for b, t in COST_SLOPE_SHAPES:
+        ls = lanes(b, t)
+        secs(ls, 1)
+        xs.append(b * t)
+        ys.append(float(np.median(secs(ls, COST_REPS))))
+    slope, icpt = np.polyfit(np.array(xs, float), np.array(ys), 1)
+    res = {"COMPILE_S": float(np.median(extra)),
+           "DISPATCH_OVERHEAD_S": minimal, "STEP_COST_S": float(slope),
+           "new_shape_extra_s": extra, "slope_intercept_s": float(icpt),
+           "slope_points": [[x, y] for x, y in zip(xs, ys)],
+           "in_plancost": {k: getattr(plancost, k) for k in COST_NAMES},
+           "card": card}
+    return res
+
+
+def cost_constant_flips(cc) -> list:
+    """The cost model's choices that the constants measured in this run
+    (``cc``) would change against those in plancost.py: on every platform
+    the model-only lowering for `TUNE_GUESTS` guests and the shard for
+    `SHARDED_GUESTS`, each chosen afresh under both sets (the tune and
+    shard caches are emptied around each choice and after)."""
+    from repro_torch.core import fleetshard, plancost
+    from repro_torch.core.platforms import get_platform, list_platforms
+
+    def choices():
+        out = {}
+        for name in list_platforms():
+            plat = get_platform(name)
+            plancost.clear_tune_cache()
+            fleetshard.clear_shard_cache()
+            low = plancost.tune_lowering(plat, None, n_guests=TUNE_GUESTS,
+                                         measure=False).chosen
+            fleetshard.clear_shard_cache()
+            shard = fleetshard.choose_shard(
+                plat, n_guests=SHARDED_GUESTS).shard_size
+            out[name] = {"lowering": dataclasses.asdict(low),
+                         "shard_size": shard}
+        return out
+
+    committed = choices()
+    saved = {k: getattr(plancost, k) for k in COST_NAMES}
+    try:
+        for k in COST_NAMES:
+            setattr(plancost, k, cc[k])
+        fresh = choices()
+    finally:
+        for k, v in saved.items():
+            setattr(plancost, k, v)
+        plancost.clear_tune_cache()
+        fleetshard.clear_shard_cache()
+    return [{"platform": name, "choice": what, "committed": c[what],
+             "measured": fresh[name][what]}
+            for name, c in committed.items() for what in c
+            if c[what] != fresh[name][what]]
+
+
+def fleet_profile(smoke, run):
+    """Where a fleet's time goes on the card: ``run`` once for its wall,
+    then once under torch.profiler (device activity only) for its
+    kernels; the device busy share is the kernels' device time over the
+    unprofiled wall."""
+    from torch.profiler import ProfilerActivity, profile
+    smoke.sync()
+    t0 = time.perf_counter()
+    run()
+    smoke.sync()
+    wall = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+        smoke.sync()
+    engine_us = other_us = 0.0
+    engine_n = other_n = 0
+    for e in prof.key_averages():
+        if not str(e.device_type).endswith("CUDA"):
+            continue
+        if "cachesim_engine_kernel" in e.key:
+            engine_us += e.self_device_time_total
+            engine_n += e.count
+        else:
+            other_us += e.self_device_time_total
+            other_n += e.count
+    busy_ms = (engine_us + other_us) / 1e3
+    return {"wall_s": wall, "engine_kernels": engine_n,
+            "engine_ms": engine_us / 1e3, "other_kernels": other_n,
+            "other_ms": other_us / 1e3, "device_busy_ms": busy_ms,
+            "device_busy_share": busy_ms / 1e3 / wall,
+            "measured": bool(engine_n)}
+
+
+def closed_loop(smoke, card):
+    """Phase 3 (iv): the paper's closed loop on the card, each check with
+    the counters set to 0 just before it and read just after."""
+    from repro_torch.core import fleet, plancost, vtop
+    from repro_torch.core.fleetshard import clear_shard_cache
+    from repro_torch.core.platforms import get_platform, list_platforms
+    res = {}
+    t_phase = time.perf_counter()
+
+    # vtop on skylake_sp's fleet guest (two LLC domains of three vCPUs)
+    plat = fleet.fleet_view(get_platform("skylake_sp"),
+                            len(fleet.default_workloads()))
+    _, vm = plat.make_host_vm(seed=0, device=smoke.dev)
+    pages = vm.alloc_pages(64)
+    groups, acct = counted(smoke, lambda: vtop.infer_llc_domains(vm, pages))
+    truth = {v: int(c) // plat.cores_per_domain
+             for v, c in enumerate(vm.vcpu_cores)}
+    want = sorted(tuple(v for v in truth if truth[v] == d)
+                  for d in sorted(set(truth.values())))
+    got = sorted(tuple(sorted(g)) for g in groups)
+    if got != want:
+        raise AssertionError(f"vtop: inferred {got}, hypercall {want}")
+    require_engine("vtop", acct)
+    res["vtop"] = dict(acct, groups=got)
+    print(f"loop: infer_llc_domains on skylake_sp's fleet guest "
+          f"({plat.n_domains} domains x {plat.cores_per_domain} vCPUs) = the "
+          f"hypercall map {got}; {acct['engine_launches']} engine launches "
+          f"in {acct['s']:.3f} s")
+
+    # the six-platform sweep against the JAX package's goldens
+    reports, acct = counted(
+        smoke, lambda: fleet.run_fleet_matrix(device=smoke.dev))
+    golden = json.loads((DATA / "torch_golden_fleet_matrix.json")
+                        .read_text())
+    got = [goldens().report_fields(r) for r in reports]
+    if len(got) != len(golden):
+        raise AssertionError(f"fleet matrix: {len(got)} reports, golden "
+                             f"{len(golden)}")
+    for g, w in zip(got, golden):
+        bad = goldens().fleet_mismatches(g, w)
+        if bad:
+            raise AssertionError(f"fleet matrix {w['platform']} "
+                                 f"{w['policy']}/cap {w['cap']}: {bad}")
+    require_engine("fleet matrix", acct)
+    f10 = fleet.fig10_summary(reports)
+    n = len(list_platforms())
+    if not (f10["n_platforms"] == f10["cas_quiet"] == f10["eevdf_pinned"]
+            == f10["separated"] == n):
+        raise AssertionError(f"fig10: {f10}")
+    cap = {}
+    for name in list_platforms():
+        lat = {r.cap: r.ws_lat_cycles for r in reports
+               if r.platform == name and r.policy == "cas"}
+        cap[name] = lat
+        if not lat["on"] < CAP_LAT_RATIO * lat["off"]:
+            raise AssertionError(f"CAP on {name}: ws_lat {lat}")
+    prof = fleet_profile(smoke, lambda: fleet.run_fleet_matrix(
+        ["skylake_sp"], device=smoke.dev))
+    res["matrix"] = dict(acct, fig10=f10, cap_ws_lat=cap,
+                         speedup=fleet.speedup_summary(reports),
+                         guests_per_sec=sorted({r.guests_per_sec
+                                                for r in reports}),
+                         skylake_sp_profile=prof)
+    print(f"loop: run_fleet_matrix() on the card, {len(reports)} reports (6 "
+          f"platforms x {len(fleet.DEFAULT_COMBOS)} combos, lockstep) equal "
+          f"to the golden (rel {goldens().FLEET_RTOL} on "
+          f"{goldens().FLEET_FLOAT_FIELDS}); Fig 10 "
+          f"CAS quiet {f10['cas_quiet']}/{n}, eevdf pinned "
+          f"{f10['eevdf_pinned']}/{n}, separated {f10['separated']}/{n}; CAP "
+          f"ws_lat on/off "
+          + ", ".join(f"{k} {v['on']:.1f}/{v['off']:.1f}"
+                      for k, v in cap.items())
+          + f"; {acct['engine_launches']} engine launches = physical "
+          f"dispatches, no plain call, in {acct['s']:.1f} s on {card}")
+    print(f"loop: skylake_sp's 4-guest cohort, {prof['wall_s']:.3f} s of "
+          f"wall: "
+          + (f"{prof['engine_kernels']} engine kernels {prof['engine_ms']:.2f}"
+             f" ms and {prof['other_kernels']} other kernels "
+             f"{prof['other_ms']:.2f} ms of device time (torch.profiler): "
+             f"device busy {100 * prof['device_busy_share']:.2f}%"
+             if prof["measured"] else "device time not measured (the "
+             "profiler saw no engine kernel)") + f" on {card}")
+
+    # the attack-and-defense loop
+    rep, acct = counted(smoke, lambda: fleet.FleetSim(
+        "skylake_sp", attack=True, with_poisoner=False, n_intervals=18,
+        device=smoke.dev).run())
+    got = goldens().report_fields(rep)
+    want = json.loads((DATA / "torch_golden_fleet_attack.json").read_text())
+    bad = goldens().fleet_mismatches(got, want)
+    if bad or rep.defenses != 1 or rep.false_drift != 0:
+        raise AssertionError(f"attack fleet: {bad}, defenses "
+                             f"{rep.defenses}, false drift "
+                             f"{rep.false_drift}")
+    require_engine("attack fleet", acct)
+    res["attack"] = dict(acct, report=got)
+    print(f"loop: attack fleet (skylake_sp, 18 intervals) equal to its "
+          f"golden: detected {rep.attack_detected} after "
+          f"{rep.attack_detect_intervals} intervals, {rep.defenses} defense, "
+          f"{rep.false_drift} false drift, residency pre/during/post "
+          f"{rep.residency_pre:.2f}/{rep.residency_during:.2f}/"
+          f"{rep.residency_post:.2f}; {acct['engine_launches']} engine "
+          f"launches in {acct['s']:.1f} s")
+
+    # rack scale: the automatic shard, then SHARDED_GUESTS forced, then
+    # the smallest candidate shard (so at least one run is sharded
+    # whatever the automatic choice)
+    clear_shard_cache()
+    plat = get_platform("skylake_sp")
+    runs = {}
+    for label, shard in (("auto", None), ("forced", SHARDED_GUESTS),
+                         ("smallest", min(plat.scale.shard_candidates))):
+        runs[label] = counted(smoke, lambda: fleet.ShardedFleet(
+            "skylake_sp", SHARDED_GUESTS, shard_size=shard,
+            device=smoke.dev).run())
+    auto = runs["auto"][0]
+    res["sharded"] = {}
+    for label, (run, acct) in runs.items():
+        diffs = [(i, [k for k in a if a[k] != b[k]])
+                 for i, (a, b) in enumerate(zip(
+                     map(goldens().report_fields, auto.reports),
+                     map(goldens().report_fields, run.reports)))]
+        diffs = [d for d in diffs if d[1]]
+        if len(run.reports) != SHARDED_GUESTS or diffs:
+            raise AssertionError(f"sharded fleet ({label}): "
+                                 f"{len(run.reports)} reports, guests "
+                                 f"that differ from auto {diffs[:4]}")
+        require_engine(f"sharded fleet ({label})", acct)
+        res["sharded"][label] = dict(
+            acct, shard_size=run.shard_size, n_shards=run.n_shards,
+            n_devices=run.n_devices, boot_s=run.boot_s, run_s=run.run_s,
+            guests_per_sec=run.guests_per_sec)
+        print(f"loop: ShardedFleet(skylake_sp, {SHARDED_GUESTS}) {label} "
+              f"shard {run.shard_size} ({run.n_shards} shards, "
+              f"{run.n_devices} device): {run.guests_per_sec:.2f} guests/s "
+              f"(boot {run.boot_s:.2f} s, run {run.run_s:.2f} s, "
+              f"{acct['engine_launches']} engine launches), per-guest "
+              f"reports bit-identical to auto's, on {card}")
+
+    # the lowering autotuner, measured on the card
+    res["tune"] = {}
+    for name in TUNE_PLATFORMS:
+        plancost.clear_tune_cache()
+        rep, acct = counted(smoke, lambda: plancost.tune_lowering(
+            get_platform(name), None, n_guests=TUNE_GUESTS, measure=True,
+            force=True, device=smoke.dev))
+        trials = [dataclasses.asdict(t) for t in rep.trials]
+        res["tune"][name] = dict(acct, chosen=dataclasses.asdict(rep.chosen),
+                                 trials=trials)
+        print(f"tune {name} ({TUNE_GUESTS} guests, measured on cuda in "
+              f"{acct['s']:.2f} s): chosen {rep.chosen}")
+        for t in rep.trials:
+            print(f"  {t.knob:13s} {t.candidate:13s} cutout {t.cutout} "
+                  f"measured {t.measured_s * 1e6:9.1f} us, new shapes "
+                  f"{t.pred_misses}, score {t.score:.5f}"
+                  f"{'  <- chosen' if t.chosen else ''}")
+    plancost.clear_tune_cache()
+    want = next(w for w in golden if (w["platform"], w["policy"], w["cap"])
+                == ("skylake_sp", "cas", "on"))
+
+    def tuned_run():
+        sim = fleet.FleetSim("skylake_sp", device=smoke.dev)
+        return sim.tune(), sim.run()
+    (tune_rep, rep), acct = counted(smoke, tuned_run)
+    bad = goldens().fleet_mismatches(goldens().report_fields(rep), want)
+    if bad:
+        raise AssertionError(f"tuned fleet (lowering {tune_rep.chosen}) "
+                             f"differs from the untuned golden: {bad}")
+    require_engine("tuned fleet", acct, exact=False)
+    res["tuned_fleet"] = dict(acct, chosen=dataclasses.asdict(
+        tune_rep.chosen))
+    print(f"loop: run_fleet(skylake_sp) under the lowering measured on "
+          f"the card ({tune_rep.chosen}) equals the untuned golden; "
+          f"{acct['engine_launches']} engine launches against "
+          f"{acct['physical_dispatches']} physical dispatches (the rest "
+          f"are the tuner's cutouts), in {acct['s']:.1f} s")
+
+    res["cost_constants"] = measure_cost_constants(smoke, card)
+    res["cost_constants"]["flips"] = cost_constant_flips(
+        res["cost_constants"])
+    res["s"] = time.perf_counter() - t_phase
+    return res
+
+
+def print_cost_constants(cc) -> None:
+    inp = cc["in_plancost"]
+    print(f"cost constants (measured for the CUDA engine, host clock): "
+          f"COMPILE_S {cc['COMPILE_S']:.3e} s (a new padded shape's first "
+          f"dispatch over a repeat; per shape "
+          f"{[round(x * 1e6, 1) for x in cc['new_shape_extra_s']]} us), "
+          f"DISPATCH_OVERHEAD_S {cc['DISPATCH_OVERHEAD_S']:.3e} s (one "
+          f"minimal dispatch + its synchronizing copy), STEP_COST_S "
+          f"{cc['STEP_COST_S']:.3e} s a padded lane-work element (intercept "
+          f"{cc['slope_intercept_s']:.3e} s); plancost.py has "
+          f"{inp['COMPILE_S']:.3e} / {inp['DISPATCH_OVERHEAD_S']:.3e} / "
+          f"{inp['STEP_COST_S']:.3e}; on {cc['card']}")
+    flips = cc["flips"]
+    print(f"cost constants: {len(flips)} of the model's choices (lowering "
+          f"for {TUNE_GUESTS} guests, shard for {SHARDED_GUESTS}, six "
+          f"platforms) differ under the measured constants from "
+          f"plancost.py's" + "".join(
+              f"; {f['platform']} {f['choice']} {f['committed']} -> "
+              f"{f['measured']}" for f in flips))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write the full results as JSON here")
@@ -2022,6 +2530,20 @@ def main() -> int:
         raise AssertionError(f"kernel paths launched {path_launches}")
     print(f"paths: simulate_rows(1024x8x128) and probe_verdicts at B in "
           f"{list(votes)} launched {path_launches}")
+    t0 = time.perf_counter()
+    out["main"]["platforms"] = run_cachex_all(smoke, runner, card)
+    out["phases"]["main_platforms_s"] = time.perf_counter() - t0
+
+    loop = closed_loop(smoke, card)
+    out["phases"]["loop_s"] = loop["s"]
+    out["loop"] = loop
+    print(f"loop: phase seconds {loop['s']:.1f} (vtop "
+          f"{loop['vtop']['s']:.1f}, matrix {loop['matrix']['s']:.1f}, "
+          f"attack {loop['attack']['s']:.1f}, sharded "
+          + " + ".join(f"{v['s']:.1f}" for v in loop["sharded"].values())
+          + ", tune "
+          + " + ".join(f"{v['s']:.1f}" for v in loop["tune"].values())
+          + f", tuned fleet {loop['tuned_fleet']['s']:.1f}) on {card}")
 
     t0 = time.perf_counter()
     serve = serve_main_path(smoke, card)
@@ -2139,6 +2661,7 @@ def main() -> int:
                  "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
                  "library_ms": None,
                  "shape": "access_streams_batched (16, 128) skylake_sp",
+                 "fleet_matrix_launches": loop["matrix"]["engine_launches"],
                  "shapes": engine_shapes,
                  "main_by_shape": out["main"]["breakdown"]["by_shape_GBT"],
                  "card": card})
@@ -2278,6 +2801,7 @@ def main() -> int:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(out, indent=1) + "\n")
     print(f"total: {out['phases']['total_s']:.1f} s")
+    print_cost_constants(loop["cost_constants"])
     print(json.dumps({"kernels": rows}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -74,6 +74,9 @@ SOURCES = tuple(SIGNATURES)
 LAUNCHES: collections.Counter = collections.Counter()
 #: plain-version name -> calls since the last reset
 PLAIN_CALLS: collections.Counter = collections.Counter()
+#: kernel name -> launches of a timed reading that was taken again since
+#: the last reset (`kernel.triad_device_seconds`); each is in LAUNCHES too
+REPEATED_LAUNCHES: collections.Counter = collections.Counter()
 #: source name -> nvcc's output of its last build (ptxas register report)
 BUILD_LOG: Dict[str, str] = {}
 
@@ -83,6 +86,7 @@ _LIBS: Dict[str, ctypes.CDLL] = {}
 def reset_counters() -> None:
     LAUNCHES.clear()
     PLAIN_CALLS.clear()
+    REPEATED_LAUNCHES.clear()
 
 
 def _nvcc() -> str:

@@ -650,13 +650,29 @@ class CacheXSession:
 
     def tuned_lowering(self, n_guests: int = 1, measure: bool = False,
                        force: bool = False):
-        """The lowering autotuner (`repro.core.plancost.tune_lowering` in
-        the JAX package) times plan cutouts against cost constants that
-        were fit for XLA; this package has not re-measured them for its
-        own engine yet, so tuning is not available."""
-        raise NotImplementedError(
-            "tuned_lowering: the lowering autotuner is not ported yet "
-            "(its cost constants must be re-measured for the CUDA engine)")
+        """Replace the session's lowering with the autotuner's choice for
+        its monitoring plan (`repro_torch.core.plancost.tune_lowering`)
+        and return the :class:`~repro_torch.core.plancost.TuneReport`.
+
+        ``measure=False`` (the default) scans the candidate lowerings on
+        the analytic cost model alone — microseconds, no probing —
+        unless a *measured* result for (platform, plan signature,
+        n_guests) is already cached, which is then reused as-is.
+        ``measure=True`` times plan cutouts on scratch VMs on the session
+        VM's device (cached afterwards).  ``n_guests`` sizes the lockstep
+        knob for the co-running group the caller intends (`FleetSim.tune`
+        passes the fleet size)."""
+        from repro_torch.core import plancost
+        plan = self.plan()
+        report = plancost.tune_lowering(self.platform, plan,
+                                        n_guests=n_guests,
+                                        seed=self.config.seed,
+                                        measure=measure, force=force,
+                                        device=self.vm.host.device)
+        self.config = self.config.replace(lowering=report.chosen)
+        if self._vs is not None:
+            self._vs.lowering = report.chosen
+        return report
 
     def execute(self, plan: ProbePlan) -> Union[ContentionView, PlanResult]:
         """Execute a ProbePlan against this session's VM.  Monitoring

@@ -22,10 +22,14 @@ The engine behind the four entry points (`access_stream`,
 state lies: on a CUDA device the hand-written kernel
 ``csrc/cachesim_engine.cu`` (one launch per call, counted in
 ``_build.LAUNCHES["cachesim_engine"]``; :func:`_engine_plan` picks from
-the geometry where it keeps a lane's rows), on the CPU a plain PyTorch
-loop over steps, vectorized over lanes and guests (counted in
-``_build.PLAIN_CALLS["cachesim_engine"]``).  Committed calls update the
-state in place (the JAX entry points donate it) and return it.
+the geometry where it keeps a lane's rows), on the CPU :func:`engine_py`,
+a plain loop over lanes and steps in Python ints (counted in
+``_build.PLAIN_CALLS["cachesim_engine"]``).  :func:`engine_ref` is the
+plain PyTorch version the kernel is held to, vectorized over lanes and
+guests; it gives the same results as :func:`engine_py` and is slower on
+the CPU at every width the CPU paths issue
+(``tools/cpu_engine_widths.py``).  Committed calls update the state in
+place (the JAX entry points donate it) and return it.
 """
 
 from __future__ import annotations
@@ -219,10 +223,9 @@ def engine(states: Dict, geom: MachineGeometry, blocks, cores, cotenant,
     runs on its own copy of its guest's state with its rng forked by
     ``salts`` (G,) and the lane index, and ``cores``/``cotenant`` are
     (G, B).  On a CUDA state it launches ``csrc/cachesim_engine.cu`` (or
-    raises); on a CPU state it runs :func:`engine_ref`."""
+    raises); on a CPU state it runs :func:`engine_py`."""
     if states["clock"].device.type == "cpu":
-        return engine_ref(states, geom, blocks, cores, cotenant, salts,
-                          commit)
+        return engine_py(states, geom, blocks, cores, cotenant, salts, commit)
     blocks, cores, cotenant, salts = _normalize(states, blocks, cores,
                                                 cotenant, salts, commit)
     return _engine_cuda(states, geom, blocks, cores, cotenant, salts, commit)
@@ -439,6 +442,143 @@ def engine_ref(states: Dict, geom: MachineGeometry, blocks, cores,
         states["clock"].copy_(clock.to(torch.int32))
         states["rng"].copy_(rng)
     return lat.view(G, B, T)
+
+
+def _slice_hash_int(b: int, n_slices: int, seed: int) -> int:
+    """:func:`slice_hash` of one block address, in Python ints."""
+    if n_slices == 1:
+        return 0
+    x = ((b & _M32) * (seed & _M32)) & _M32
+    x ^= x >> 13
+    x = (x * 0x85EBCA6B) & _M32
+    x ^= x >> 16
+    return x % n_slices
+
+
+def _touch(tags: list, ages: list, blk: int, clk: int,
+           rand_bits: Optional[int]):
+    """:func:`~repro_torch.kernels._lru.lru_touch_victim` on one row held
+    as Python lists, in place: returns (hit, victim, way written)."""
+    if blk in tags:
+        way = tags.index(blk)
+        hit, victim = True, -1
+    elif -1 in tags:
+        way = tags.index(-1)
+        hit, victim = False, -1
+    else:
+        way = (ages.index(min(ages)) if rand_bits is None
+               else rand_bits % len(tags))
+        hit, victim = False, tags[way]
+    tags[way] = blk
+    ages[way] = clk
+    return hit, victim, way
+
+
+class _Rows:
+    """One lane's view of a level's rows: a commit lane writes through to
+    the state's numpy rows; a measure lane copies a row on its first
+    write and reads its copy after (the lane runs on its own copy of its
+    guest's state)."""
+
+    def __init__(self, tags: np.ndarray, ages: np.ndarray, commit: bool):
+        self.tags, self.ages, self.commit = tags, ages, commit
+        self.own = {}
+
+    def get(self, key):
+        row = self.own.get(key)
+        if row is None:
+            row = (self.tags[key].tolist(), self.ages[key].tolist())
+            if not self.commit:
+                self.own[key] = row
+        return row
+
+    def touch(self, key, blk, clk, bits):
+        tags, ages = self.get(key)
+        hit, victim, way = _touch(tags, ages, blk, clk, bits)
+        if self.commit:
+            self.tags[key][way] = blk
+            self.ages[key][way] = clk
+        return hit, victim
+
+    def invalidate(self, key, blk) -> None:
+        if key not in self.own:
+            if blk not in self.tags[key].tolist():
+                return
+            if self.commit:
+                row = self.tags[key]
+                row[row == blk] = -1
+                return
+        tags = self.get(key)[0]
+        for w, b in enumerate(tags):
+            if b == blk:
+                tags[w] = -1
+
+
+def engine_py(states: Dict, geom: MachineGeometry, blocks, cores, cotenant,
+              salts, commit: bool) -> torch.Tensor:
+    """:func:`engine_ref` on a CPU state, lane by lane and step by step in
+    Python ints over numpy views of the state: the same latencies, states,
+    clocks and rngs (the same first-index rules, the same rng draws and
+    lane forks), without its per-step tensor overhead.  Commit lanes
+    write through to their guest's state; measure lanes copy a row at
+    its first write."""
+    _build.PLAIN_CALLS["cachesim_engine"] += 1
+    blocks, cores, cotenant, salts = _normalize(states, blocks, cores,
+                                                cotenant, salts, commit)
+    if not commit and salts is None:
+        raise ValueError("engine: measure mode needs (G,) salts")
+    G, B, T = blocks.shape
+    cpd, n_sl, seed = geom.cores_per_domain, geom.llc.n_slices, \
+        geom.slice_seed
+    s2, s3 = geom.l2.n_sets, geom.llc.n_sets
+    rand = geom.replacement == "random"
+    inclusive = geom.inclusion == "inclusive"
+    t2s, a2s = (x.numpy() for x in states["l2"])
+    t3s, a3s = (x.numpy() for x in states["llc"])
+    clocks, rngs = states["clock"].numpy(), states["rng"].numpy()
+    blk_all = blocks.numpy()
+    core_all, ct_all = cores.numpy(), cotenant.numpy()
+    lat = np.zeros((G, B, T), np.int32)
+    for g in range(G):
+        for b in range(B):
+            l2 = _Rows(t2s[g], a2s[g], commit)
+            llc = _Rows(t3s[g], a3s[g], commit)
+            clock, rng = int(clocks[g]), int(rngs[g])
+            if commit:
+                core_t, ct_t = core_all[g].tolist(), ct_all[g].tolist()
+            else:
+                rng = (rng + ((int(salts[g]) & _M32) * RNG_SALT_STRIDE
+                              & _M32) + (b * RNG_LANE_STRIDE & _M32)) & _M32
+                core_t = [int(core_all[g, b])] * T
+                ct_t = [bool(ct_all[g, b])] * T
+            blk_t, lat_l = blk_all[g, b].tolist(), lat[g, b]
+            for t in range(T):
+                clock += 1
+                bits = None
+                if rand:
+                    rng ^= (rng << 13) & _M32
+                    rng ^= rng >> 17
+                    rng ^= (rng << 5) & _M32
+                    bits = rng >> 1
+                blk = blk_t[t]
+                if blk < 0:
+                    continue
+                core = core_t[t]
+                l2_hit = False
+                if not ct_t[t]:
+                    l2_hit, _ = l2.touch((core, blk % s2), blk, clock, bits)
+                domain = core // cpd
+                llc_hit, victim = llc.touch(
+                    (domain, _slice_hash_int(blk, n_sl, seed), blk % s3),
+                    blk, clock, bits)
+                if inclusive and victim >= 0:
+                    for c in range(domain * cpd, (domain + 1) * cpd):
+                        l2.invalidate((c, victim % s2), victim)
+                lat_l[t] = (LAT_L2 if l2_hit else
+                            LAT_LLC if llc_hit else LAT_DRAM)
+            if commit:
+                clocks[g], rngs[g] = clock, rng
+    return torch.from_numpy(lat)
 
 
 # ---------------------------------------------------------------------------

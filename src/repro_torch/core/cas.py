@@ -126,7 +126,7 @@ def policy_place(policy: str, idle: Sequence[int], vcpu_domain: Dict[int, int],
     """Place one waking task under a named scheduling policy.
 
     Shared by :class:`MiniSched` (the toy Fig 10 harness) and the closed-loop
-    fleet simulator (`repro.core.fleet` (JAX package)):
+    fleet simulator (`repro_torch.core.fleet`):
 
       * ``"cas"``   — :func:`select_vcpu` over the committed contention tiers
         (affinity honoured only within the best tier),

@@ -105,7 +105,7 @@ class AttackSpec:
     """A platform's default adversarial-co-tenancy scenario.
 
     Consumed by ``FleetSim(attack=True)`` (and ``benchmarks --only
-    attack``): a Prime+Probe `repro.core.attacker.AttackerGuest` (JAX package) boots
+    attack``): a Prime+Probe `repro_torch.core.attacker.AttackerGuest` boots
     on the victim's host, profiles for ``profile_intervals`` monitoring
     intervals, then streams priming traffic at ``rate_factor`` accesses
     per target line per ms over ``n_targets`` sets in LLC ``domain``
@@ -132,10 +132,10 @@ class AttackSpec:
 class ScaleSpec:
     """A platform's rack-scale fleet execution profile.
 
-    Consumed by `repro.core.fleet.ShardedFleet` (JAX package) (and ``benchmarks
+    Consumed by `repro_torch.core.fleet.ShardedFleet` (and ``benchmarks
     --only scale``): how to size the per-guest simulation loop when
     hundreds of guests co-execute on one platform, and which shard
-    sizes the `repro.core.fleetshard.choose_shard` (JAX package) cost model may
+    sizes the `repro_torch.core.fleetshard.choose_shard` cost model may
     consider.  ``max_guests_per_dispatch`` is the honest memory
     ceiling — the largest leading batch axis a single lockstep
     dispatch may carry before host-side padding buffers dominate;
@@ -293,7 +293,7 @@ class CachePlatform:
 
     def plan_lowering(self) -> PlanLowering:
         """Default ProbePlan lowering hints for this scenario — a starting
-        point, not law: the JAX package's `repro.core.plancost.tune_lowering` overrides it
+        point, not law: `repro_torch.core.plancost.tune_lowering` overrides it
         with a measured choice per (platform, plan signature), and
         ``CacheXSession.tuned_lowering`` / ``FleetSim.tune`` install that
         override.  Fused

@@ -82,7 +82,7 @@ class PlanLowering:
                        stacked-state footprint of any one dispatch and
                        reuses one ``(shard, ...)`` compile shape across
                        fleet sizes; per-guest results are bit-identical at
-                       any shard size (`repro.core.fleetshard` (JAX package) picks it).
+                       any shard size (`repro_torch.core.fleetshard` picks it).
     """
 
     fuse_commits: bool = True
@@ -407,7 +407,7 @@ def execute_many(vms: Sequence[GuestVM],
 
     A ``PlanLowering.shard_size`` hint shards the group: each batched op
     issues one multi-guest dispatch per ``shard_size`` guests (the
-    rack-scale lowering — `repro.core.fleetshard` (JAX package)) instead of one for the
+    rack-scale lowering — `repro_torch.core.fleetshard`) instead of one for the
     whole group; results stay bit-identical at any shard size."""
     if len(vms) != len(plans):
         raise ValueError("one plan per guest")

@@ -147,14 +147,12 @@ def run_cachex(platform: Union[str, CachePlatform],
     already-booted pair instead of booting a fresh scenario: the host is
     left clean (the measurement burst this driver attaches is removed
     again, co-tenant enabled states are restored) and the report's cost
-    counters are deltas for this run only.  ``tune=True`` (the JAX
-    package's lowering autotuner) is not ported yet and raises
-    ``NotImplementedError``.  ``device`` holds the freshly booted
-    machine's state (None: the CUDA card; ``"cpu"`` runs the plain
-    engine)."""
-    if tune:
-        raise NotImplementedError(
-            "run_cachex(tune=True): the lowering autotuner is not ported yet")
+    counters are deltas for this run only.  ``tune=True`` replaces the
+    platform's hinted plan lowering with the autotuner's choice for the
+    session's monitoring plan before any monitoring runs
+    (``CacheXSession.tuned_lowering``; model-only — no cutout timing).
+    ``device`` holds the freshly booted machine's state (None: the CUDA
+    card; ``"cpu"`` runs the plain engine)."""
     plat = get_platform(platform) if isinstance(platform, str) else platform
     cfg = config if config is not None else ProbeConfig.for_platform(plat)
     overrides = {}
@@ -169,6 +167,8 @@ def run_cachex(platform: Union[str, CachePlatform],
     passes0, accesses0 = vm.stat_passes, vm.stat_accesses
     cotenant_enabled = {wl.name: wl.enabled for wl in host.cotenants}
     session = CacheXSession.attach(vm, plat, cfg)
+    if tune:
+        session.tuned_lowering()
     t0 = time.perf_counter()
 
     # ---- VCOL: color filters + virtual-color accuracy (§3.2) --------------

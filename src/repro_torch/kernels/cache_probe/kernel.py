@@ -53,7 +53,9 @@ def triad_device_seconds(a: torch.Tensor, b: torch.Tensor,
     (``triad_timed_launch``: a spin first, then the start event, the
     launches and the end event, all enqueued by one C call).  A reading
     whose start event had already passed once all was enqueued is
-    repeated with a spin twice as long; every launch counts."""
+    repeated with a spin twice as long; every launch counts in
+    ``_build.LAUNCHES``, and those of a reading taken again in
+    ``_build.REPEATED_LAUNCHES`` as well."""
     if a.shape != b.shape or tuple(scale.shape) != (1,) or reps < 1:
         raise ValueError(f"triad: shapes a {tuple(a.shape)}, b "
                          f"{tuple(b.shape)}, scale {tuple(scale.shape)}, "
@@ -71,6 +73,7 @@ def triad_device_seconds(a: torch.Tensor, b: torch.Tensor,
         _build.LAUNCHES["triad"] += reps
         if hidden.value:
             return ms.value / 1e3 / reps
+        _build.REPEATED_LAUNCHES["triad"] += reps
         spin_us *= 2
     raise RuntimeError(f"triad: the host could not enqueue {reps} launches "
                        f"within a {spin_us / 2:.0f} us spin")

@@ -26,8 +26,12 @@ time = idle rate / effective rate).  A 64 MiB triad moves
 slowdown of about 1.3, and a tier, with no co-tenant.  Nothing is
 calibrated after the first probe: a shrink happens under contention,
 and a nominal read then would hide it.  The first probe must therefore
-find the card idle; a co-tenant already running then is read as the
-nominal.  As in the JAX module, every
+find the card idle: a co-tenant already running then would become the
+nominal.  So after calibrating, the monitor holds the rate at its
+largest size against the spec: at 64 MiB or more a rate below
+`_IDLE_NOMINAL_MIN_SHARE` (0.7) of `HBM_BW` warns once with a
+`RuntimeWarning` naming both rates (an idle H100 80GB HBM3 moves
+0.74-0.80 of the spec at 64 MiB).  As in the JAX module, every
 device index probes the one device the monitor runs on: ``n_devices``
 probes are ``n_devices`` triad launches there.  Probing each card of a
 node waits for the multi-card slice.
@@ -37,6 +41,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
+import warnings
 from typing import Callable, Dict, List, Optional
 
 import numpy as np
@@ -51,6 +56,10 @@ __all__ = ["ProbeSample", "SimClock", "PodMonitor"]
 _CALIBRATION_PROBES = 5
 #: the auto-shrink's smallest probe
 _MIN_PROBE_BYTES = 1 << 20
+#: the least share of the spec bandwidth an idle nominal may have at a
+#: probe size of at least `_NOMINAL_CHECK_BYTES`, or the monitor warns
+_IDLE_NOMINAL_MIN_SHARE = 0.7
+_NOMINAL_CHECK_BYTES = 64 * (1 << 20)
 
 
 def _shrunk(probe_bytes: int) -> int:
@@ -134,7 +143,24 @@ class PodMonitor:
             self._calibration_launches += (_build.LAUNCHES["triad"]
                                            + _build.PLAIN_CALLS["triad"]
                                            - before)
+            self._check_nominal()
         return self._idle_s[self.probe_bytes]
+
+    def _check_nominal(self) -> None:
+        """Warn when the calibrated nominal at the largest size looks
+        contended: a co-tenant running at the first probe would otherwise
+        become the idle reference, and every later reading would hide
+        it."""
+        nb = max(self._idle_s)
+        rate = nb / self._idle_s[nb]
+        if (nb >= _NOMINAL_CHECK_BYTES
+                and rate < _IDLE_NOMINAL_MIN_SHARE * HBM_BW):
+            warnings.warn(
+                f"PodMonitor: the idle nominal at {nb >> 20} MiB moves "
+                f"{rate / 1e12:.3f} TB/s, below {_IDLE_NOMINAL_MIN_SHARE} "
+                f"of the spec {HBM_BW / 1e12:.2f} TB/s: was the device "
+                f"busy at the first probe?  Later slowdowns are read "
+                f"against this rate.", RuntimeWarning, stacklevel=3)
 
     # -- one monitoring interval ------------------------------------------------
     def probe_once(self) -> List[ProbeSample]:

@@ -1,8 +1,11 @@
-"""Parity of the port's engine (`repro_torch.core.cachesim`, plain PyTorch
-on the CPU) with the JAX simulator: the four entry points under lru and
-random replacement and both inclusion variants, every platform geometry
-and the paper's Table 1 geometry, the uint32 hash/rng edge values, and a
-JAX state taken mid-run and continued in the port.  All exact.
+"""Parity of the port's engine (`repro_torch.core.cachesim` on the CPU)
+with the JAX simulator: the four entry points under lru and random
+replacement and both inclusion variants, every platform geometry and the
+paper's Table 1 geometry, the uint32 hash/rng edge values, and a JAX state
+taken mid-run and continued in the port; each of these on both of the
+CPU's engines (`cpu_engines`): `engine_py`, which a CPU state runs, and
+`engine_ref`, the plain PyTorch version the CUDA kernel is held to.  And
+the two engines against each other.  All exact.
 """
 
 import dataclasses
@@ -80,6 +83,18 @@ def warmed(tgeom, rng, n=256):
     st, _ = jsim.access_stream(jsim.init_machine(jg), jg, jnp.asarray(b),
                                jnp.asarray(c), jnp.asarray(t))
     return jax_np(st)
+
+
+@pytest.fixture
+def cpu_engines(monkeypatch):
+    """Iterate to run a test's port half once per CPU engine: each step
+    installs `engine_py`, then `engine_ref`, as `cachesim.engine` (which
+    every entry point calls) and yields its name."""
+    def each():
+        for run in (tsim.engine_py, tsim.engine_ref):
+            monkeypatch.setattr(tsim, "engine", run)
+            yield run.__name__
+    return each
 
 
 # -- uint32 arithmetic --------------------------------------------------------
@@ -189,19 +204,25 @@ def run_all_entry_points(tgeom, rng, B=8, Tb=48, Tc=192):
 
 @pytest.mark.parametrize("replacement", ["lru", "random"])
 @pytest.mark.parametrize("inclusion", ["inclusive", "non_inclusive"])
-def test_entry_points_match_jax(replacement, inclusion):
+def test_entry_points_match_jax(replacement, inclusion, cpu_engines):
     geom = dataclasses.replace(tplat.get_platform("skylake_sp").machine(),
                                replacement=replacement, inclusion=inclusion)
-    run_all_entry_points(geom, np.random.default_rng(len(replacement)
-                                                     + len(inclusion)))
+    for _ in cpu_engines():
+        run_all_entry_points(geom, np.random.default_rng(len(replacement)
+                                                         + len(inclusion)))
 
 
 @pytest.mark.parametrize("name", ["skylake_sp", "icelake_sp", "milan_ccx",
                                   "skylake_cat", "skylake_slicepart",
                                   "skylake_shared"])
-def test_platform_geometries_match_jax(name):
+def test_platform_geometries_match_jax(name, cpu_engines):
     tgeom = tplat.get_platform(name).machine()
     assert jgeom_of(tgeom) == jplat.get_platform(name).machine()
+    for _ in cpu_engines():
+        platform_geometry_matches_jax(tgeom, name)
+
+
+def platform_geometry_matches_jax(tgeom, name):
     rng = np.random.default_rng(sum(map(ord, name)))
     jg = jgeom_of(tgeom)
     base = warmed(tgeom, rng, n=512)
@@ -225,17 +246,24 @@ def test_platform_geometries_match_jax(name):
 
 @pytest.mark.parametrize("replacement,inclusion",
                          [("lru", "inclusive"), ("random", "non_inclusive")])
-def test_table1_geometry_matches_jax(replacement, inclusion):
+def test_table1_geometry_matches_jax(replacement, inclusion, cpu_engines):
     """The paper's Table 1 machine: 1024 x 16 L2s, 20 slices x 2048 x 11."""
     tgeom = tsim.MachineGeometry(l2=tsim.SKYLAKE_L2, llc=tsim.skylake_llc(20),
                                  replacement=replacement, inclusion=inclusion)
     assert tgeom.llc.n_lines == 450560
-    run_all_entry_points(tgeom, np.random.default_rng(1), B=4, Tb=24, Tc=64)
+    for _ in cpu_engines():
+        run_all_entry_points(tgeom, np.random.default_rng(1), B=4, Tb=24,
+                             Tc=64)
 
 
-def test_lane0_salt0_replays_access_stream():
+def test_lane0_salt0_replays_access_stream(cpu_engines):
     geom = dataclasses.replace(tplat.get_platform("skylake_sp").machine(),
                                replacement="random")
+    for _ in cpu_engines():
+        lane0_salt0_replays_access_stream(geom)
+
+
+def lane0_salt0_replays_access_stream(geom):
     rng = np.random.default_rng(3)
     st = tsim.state_from_numpy(warmed(geom, rng), "cpu")
     lane = rng.integers(0, 3 * geom.llc.n_lines, 64).astype(np.int32)
@@ -247,11 +275,16 @@ def test_lane0_salt0_replays_access_stream():
     assert torch.equal(one[0], seq)
 
 
-def test_jax_state_mid_run_continues_in_the_port():
+def test_jax_state_mid_run_continues_in_the_port(cpu_engines):
     """A JAX machine taken mid-run, converted with `state_from_numpy`,
     continues bit-identically; `state_to_numpy` round-trips it."""
     geom = dataclasses.replace(tplat.get_platform("skylake_shared").machine(),
                                replacement="random")
+    for _ in cpu_engines():
+        jax_state_mid_run_continues_in_the_port(geom)
+
+
+def jax_state_mid_run_continues_in_the_port(geom):
     jg = jgeom_of(geom)
     rng = np.random.default_rng(4)
     mid = warmed(geom, rng, n=700)
@@ -303,3 +336,55 @@ def test_cpu_state_runs_the_plain_engine_only():
                                 torch.zeros(2, dtype=torch.bool))
     assert _build.PLAIN_CALLS["cachesim_engine"] == 2
     assert not _build.LAUNCHES
+
+
+def _clone(st):
+    return {k: (tuple(x.clone() for x in v) if isinstance(v, tuple)
+                else v.clone()) for k, v in st.items()}
+
+
+@pytest.mark.parametrize("name", ["skylake_sp", "milan_ccx", "skylake_cat",
+                                  "icelake_sp"])
+@pytest.mark.parametrize("replacement,inclusion",
+                         [("lru", "inclusive"), ("random", "non_inclusive"),
+                          ("random", "inclusive")])
+def test_python_engine_equals_the_plain_engine(name, replacement, inclusion):
+    """`engine_py` (what a CPU state runs) against `engine_ref` (the plain PyTorch engine the CUDA kernel
+    is held to): committed streams on three guests, then measurement
+    lanes with salts on a copy of each, on congruent addresses so rows
+    fill, evict and back-invalidate: the same latencies, states, clocks
+    and rngs."""
+    geom = dataclasses.replace(tplat.get_platform(name).machine(),
+                               replacement=replacement, inclusion=inclusion)
+    rng = np.random.default_rng(len(name) + len(replacement))
+    G = 3
+
+    def congruent(shape):
+        return (rng.integers(0, 96, shape) * 4096
+                + rng.integers(0, 3, shape) * 64
+                + rng.integers(0, 2, shape)).astype(np.int32)
+
+    ref = tsim.stack_states([tsim.init_machine(geom, "cpu")
+                             for _ in range(G)])
+    py = _clone(ref)
+    wb = congruent((G, 1, 500))
+    wb[:, :, ::17] = -1
+    wc = rng.integers(0, geom.n_cores, (G, 500)).astype(np.int32)
+    wt = rng.random((G, 500)) < 0.3
+    lr = tsim.engine_ref(ref, geom, T(wb), wc, wt, None, True)
+    lp = tsim.engine_py(py, geom, T(wb), wc, wt, None, True)
+    assert torch.equal(lp, lr)
+    for B in (5, 50):
+        mb = congruent((G, B, 40))
+        mb[rng.random(mb.shape) < 0.05] = -1
+        mc = rng.integers(0, geom.n_cores, (G, B)).astype(np.int32)
+        mt = rng.random((G, B)) < 0.3
+        salts = rng.integers(0, 2 ** 32, G).astype(np.int64)
+        lr = tsim.engine_ref(ref, geom, T(mb), mc, mt, salts, False)
+        lp = tsim.engine_py(py, geom, T(mb), mc, mt, salts, False)
+        assert torch.equal(lp, lr), B
+    for k in ("l2", "llc"):
+        for a, b in zip(py[k], ref[k]):
+            assert torch.equal(a, b)
+    assert torch.equal(py["clock"], ref["clock"])
+    assert torch.equal(py["rng"], ref["rng"])

@@ -37,6 +37,9 @@ def test_port_imports_neither_jax_nor_repro():
             "import repro_torch.optim.adamw, repro_torch.optim.grad_compress\n"
             "import repro_torch.checkpoint.ckpt\n"
             "import repro_torch.train.train_step, repro_torch.train.trainer\n"
+            "import repro_torch.core.vtop, repro_torch.core.attacker\n"
+            "import repro_torch.core.plancost, repro_torch.core.fleetshard\n"
+            "import repro_torch.core.fleet\n"
             "from repro_torch.configs.base import ARCH_IDS, get_config\n"
             "[get_config(a) for a in ARCH_IDS]\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
@@ -96,6 +99,48 @@ def test_lm_modules_public_names_are_the_jax_modules(name):
                                          or inspect.isclass(v))
            and v.__module__ == port.__name__}
     assert own <= set(port.__all__), own - set(port.__all__)
+
+
+@pytest.mark.parametrize("name", ["vtop", "attacker", "plancost",
+                                  "fleetshard", "fleet"])
+def test_closed_loop_modules_public_names_are_the_jax_modules(name):
+    """The closed loop's modules define no public function, class or
+    constant the JAX module lacks."""
+    import importlib
+    port = importlib.import_module(f"repro_torch.core.{name}")
+    ref = importlib.import_module(f"repro.core.{name}")
+    own = {n for n, v in vars(port).items()
+           if not n.startswith("_") and not isinstance(v, type(importlib))
+           and getattr(v, "__module__", port.__name__) == port.__name__}
+    assert own <= set(dir(ref)), own - set(dir(ref))
+
+
+def test_closed_loop_entry_points_default_to_the_card():
+    """The fleet, the sharded fleet, the matrix and the measured tuner
+    run on the card unless asked for the CPU; without one they raise."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the entry points would run")
+    from repro_torch.core import fleet, fleetshard, plancost
+    plat = platforms.get_platform("skylake_sp")
+    loop = dict(n_intervals=0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        fleet.run_fleet("skylake_sp", **loop)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        fleet.FleetSim("skylake_sp", **loop)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        fleet.ShardedFleet("skylake_sp", 2, **loop)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        fleet.run_fleet_matrix(["skylake_sp"], **loop)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        plancost.tune_lowering(plat, None, force=True)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        fleetshard.device_groups(4, 2)
+    # asked for the CPU, a fleet boots; a model-only tune needs no device
+    assert fleet.FleetSim("skylake_sp", device="cpu",
+                          **loop).host.device.type == "cpu"
+    plancost.tune_lowering(plat, None, measure=False, force=True)
+    assert fleetshard.device_groups(4, 2, device="cpu") == \
+        [(0, slice(0, 4))]
 
 
 def test_serving_entry_points_default_to_the_card():

@@ -190,6 +190,37 @@ def test_monitor_probes_the_plain_triad_on_the_cpu():
     assert mon._calibration_launches == calib
 
 
+@pytest.mark.parametrize("missed", [0, 1, 3])
+def test_timed_triad_counts_its_repeated_readings(monkeypatch, missed):
+    """`triad_device_seconds` takes a reading again while its start event
+    had passed before the launches were enqueued: every launch counts in
+    LAUNCHES, and those of a reading taken again in REPEATED_LAUNCHES too.
+    The C call is stubbed: it reports ``missed`` late readings, then a
+    hidden one of 0.5 ms over the ``reps`` launches."""
+    import ctypes
+    spins = []
+
+    def fake_call(name, fn, a, b, s, out, n, reps, spin_us, stream, ms,
+                  hidden):
+        assert (name, fn) == ("triad", "triad_timed_launch")
+        spins.append(spin_us)
+        ctypes.c_float.from_address(ms).value = 0.5
+        ctypes.c_int.from_address(hidden).value = int(len(spins) > missed)
+
+    monkeypatch.setattr(_build, "check_cuda", lambda *a, **k: None)
+    monkeypatch.setattr(_build, "stream", lambda device: 0)
+    monkeypatch.setattr(_build, "call", fake_call)
+    x = torch.ones((8, 128))
+    _build.reset_counters()
+    dt = kernel.triad_device_seconds(x, x, torch.ones(1), reps=2)
+    assert dt == pytest.approx(0.5e-3 / 2)
+    assert spins == [200.0 * 2 ** i for i in range(missed + 1)]
+    assert _build.LAUNCHES["triad"] == 2 * (missed + 1)
+    assert _build.REPEATED_LAUNCHES["triad"] == 2 * missed
+    _build.reset_counters()
+    assert not _build.REPEATED_LAUNCHES
+
+
 # -- the monitor on a device: the nominal is the idle triad's rate ---------------
 
 MiB = 1 << 20
@@ -375,3 +406,30 @@ def test_expert_placement_equals_jax():
                                       rj.on_contention(view).expert_to_device)
         assert (rt.moves, rt.rebalances) == (rj.moves, rj.rebalances)
     assert rt.rebalances >= 1
+
+
+@pytest.mark.parametrize("probe_mib, share, warns", [
+    (64, 0.45, True),       # a co-tenant at the first probe: warned
+    (64, 0.79, False),      # an idle H100's 64 MiB share: silent
+    (128, 0.69, True),
+    (32, 0.45, False)])     # below 64 MiB the spec is no yardstick
+def test_monitor_warns_once_on_a_contended_nominal(monkeypatch, probe_mib,
+                                                   share, warns):
+    """After calibrating at its first probe, the monitor holds the rate at
+    its largest size against the spec: at 64 MiB or more, below 0.7 of
+    `HBM_BW` it warns once with both rates; later probes never warn."""
+    import warnings
+    mon = tmon.PodMonitor(1, device="cpu", probe_bytes=probe_mib * MiB)
+    monkeypatch.setattr(mon, "_triad_seconds",
+                        lambda n_bytes: n_bytes / (share * tmesh.HBM_BW))
+    with warnings.catch_warnings(record=True) as rec:
+        warnings.simplefilter("always")
+        for _ in range(3):
+            mon.probe_once()
+    got = [str(w.message) for w in rec
+           if issubclass(w.category, RuntimeWarning)]
+    assert len(got) == int(warns), got
+    if warns:
+        assert f"{share * tmesh.HBM_BW / 1e12:.3f} TB/s" in got[0]
+        assert f"{tmesh.HBM_BW / 1e12:.2f} TB/s" in got[0]
+    assert mon.device_tiers() == {0: 0}
