@@ -25,10 +25,11 @@ Four phases, in order; any failure exits non-zero:
              `ssd_scan` against its plain version and the model's
              `ssd_chunked_ref` (within stated tolerances) at the shapes of
              tests/test_kernels.py, a ragged head-dim-80 case, head dims
-             40 and 96, Sq != Sk, a GQA group of 8, (B, S, H, D) views
-             whose strides are off the 16-byte grid, one chunk, chunks of
-             96, p = 32 with n = 128 and the zamba2-2.7b / mamba2-2.7b
-             prefill shapes; `triad` against `triad_ref` (bit for bit) at
+             40 and 96, Sq != Sk, a GQA group of 8, head dims 144 and 160
+             (GQA 4, ragged S, causal and not), (B, S, H, D) views whose
+             strides are off the 16-byte grid, one chunk, chunks of 96,
+             p = 32 with n = 128 and the zamba2-2.7b / mamba2-2.7b /
+             pixtral-12b prefill shapes; `triad` against `triad_ref` (bit for bit) at
              the shapes of tests/test_kernels.py, the monitor's 64 MiB
              probe (43,688 rows) and 1 GiB;
 3. main    — four paths, each check with the launch counters set to 0
@@ -87,6 +88,29 @@ Four phases, in order; any failure exits non-zero:
              continuous steps, deterministic algorithms) and an
              accumulation check at full width in f32 (1 vs 2
              microbatches, grad_norm within rel 2e-3);
+             (v) the moe, encoder and vlm families at full width, which
+             must start with at most 1 GiB left allocated, each model's
+             weights freed before the next and its peak memory printed:
+             qwen2-moe-a2.7b at full width and depth (24 layers, 60
+             experts padded to 64, top-4, the gated shared expert; 15.1 B
+             f32 parameters): `lm.prefill` of 2 x 2048 tokens in f32 and
+             bf16 (gshard) with 24 `flash_attention` launches and no
+             plain call, held against `impl="ref"` (f32 as (ii), bf16
+             within twice bf16's own error), each forward's routing
+             recorded layer by layer and the tokens two compared
+             forwards route apart counted, the sorted dispatch within
+             1e-4 of gshard (beyond it only through near-ties of the
+             router, capped at 2e-3, with each layer's MoE block sorted
+             vs gshard within 1e-5 on its own input), `frac_dropped`
+             from one more forward, then
+             `ServeEngine` (4 requests of 64-token prompts, 8 new tokens,
+             4 slots) in f32 and bf16, its tokens equal to a
+             teacher-forced `lm.decode_step` loop; pixtral-12b at full
+             width and depth (40 layers, head dim 160): prefill of 2 x
+             (256 patches + 1792 tokens), 40 launches; hubert-xlarge at
+             full width and depth (48 layers, bidirectional): prefill and
+             `lm.loss_fn` under no_grad on 2 x 2048 frames, 48 launches
+             each;
 4. times   — times each kernel with CUDA events at the main path's shapes
              beside its plain version, its bound and the PyTorch library
              call where one exists (the engine also at the Table 1
@@ -95,8 +119,10 @@ Four phases, in order; any failure exits non-zero:
              x 16 x 512, with its time a step beside one warp touch's
              latency; the triad also at 256 MiB and 1 GiB, and from a cold
              L2; the SSD's four stages by torch.profiler, profiled up to
-             three times and any stage still missing named as lost), and
-             prints one `{"kernels": [...]}` line.
+             three times and any stage still missing named as lost;
+             `flash_attention` also at the three families' prefill
+             shapes, one row each), and prints one `{"kernels": [...]}`
+             line.
 
 Before the kernels line, a `cost constants:` line; the line before the
 last is `nvidia-smi`'s name and power limit of the card; the last line is
@@ -145,6 +171,8 @@ SSD_TOL = dict(rtol=2e-5, atol=2e-5)
 SSD_TOL_FULL = dict(rtol=1e-4, atol=1e-4)
 # zamba2-2.7b's attention at the prefill shape: (B, Sq, Sk, Hq, Hkv, D)
 ZAMBA_ATTN = (2, 2048, 2048, 32, 32, 80)
+# pixtral-12b's: head dim 160, its 8 KV heads expanded to the 32 query heads
+PIXTRAL_ATTN = (2, 2048, 2048, 32, 32, 160)
 
 SOURCES = {
     "cachesim_engine": ("src/repro_torch/csrc/cachesim_engine.cu",
@@ -656,14 +684,24 @@ class Smoke:
             (1, 128, 384, 4, 2, 64, True),    # Sq != Sk
             (1, 128, 384, 4, 2, 64, False),
             (2, 256, 256, 16, 2, 64, True),   # a GQA group of 8
-            (*ZAMBA_ATTN, True)]              # the zamba2 prefill shape
+            (*ZAMBA_ATTN, True),              # the zamba2 prefill shape
+            # pixtral-12b's head dim 160 and 144 below it: GQA 4, ragged S
+            (1, 200, 200, 8, 2, 144, True), (2, 130, 130, 8, 2, 144, False),
+            (1, 200, 200, 8, 2, 160, True), (2, 130, 130, 8, 2, 160, False),
+            (2, 2048, 2048, 32, 8, 160, True),    # pixtral's prefill, GQA 4
+            (*PIXTRAL_ATTN, True)]   # as the model calls it (K/V expanded)
+        tags = {(*ZAMBA_ATTN, True): " zamba2 shape",
+                (2, 2048, 2048, 32, 8, 160, True): " pixtral shape GQA 4",
+                (*PIXTRAL_ATTN, True): " pixtral shape"}
         for i, (B, Sq, Sk, Hq, Hkv, D, causal) in enumerate(cases):
             for dtype in (torch.float32, torch.bfloat16):
                 q = self.randn((B, Hq, Sq, D), 3 * i, dtype)
                 k = self.randn((B, Hkv, Sk, D), 3 * i + 1, dtype)
                 v = self.randn((B, Hkv, Sk, D), 3 * i + 2, dtype)
                 name = str(dtype)[6:]
-                tag = name + (" zamba2 shape" if i == len(cases) - 1 else "")
+                tag = name + tags.get(
+                    (B, Sq, Sk, Hq, Hkv, D, causal),
+                    " D 144/160" if D in (144, 160) else "")
                 what = (f"({B},{Hq}/{Hkv},{Sq}x{Sk},{D}) causal={causal} "
                         f"{name}")
                 self.close("flash_attention", what,
@@ -682,7 +720,8 @@ class Smoke:
         # the 16-byte grid, so the kernel's loader copies element by
         # element instead of 16 bytes at a time
         B, S, H = 2, 160, 3
-        for j, (D, causal) in enumerate(((64, True), (80, False))):
+        for j, (D, causal) in enumerate(((64, True), (80, False),
+                                         (160, True))):
             for dtype in (torch.float32, torch.bfloat16):
                 name = str(dtype)[6:]
                 qkv = [self.randn((B, S, H, D + 1), 100 + 3 * j + u,
@@ -1158,6 +1197,453 @@ def serve_main_path(smoke, card):
     del params, tokens, batch, lk, lr, f32_logits, pre, top2
     gc.collect()
     torch.cuda.empty_cache()
+    return res
+
+
+# -- the moe, encoder and vlm families at full width (phase 3 (v)) ---------------
+
+MOE_ARCH, VLM_ARCH, ENC_ARCH = "qwen2_moe_a2p7b", "pixtral_12b", \
+    "hubert_xlarge"
+# qwen2-moe's engine: 4 requests of 64-token prompts, 8 new tokens each,
+# 4 slots (one wave)
+MOE_REQUESTS, MOE_PROMPT, MOE_NEW, MOE_SLOTS = 4, 64, 8, 4
+# sorted vs gshard dispatch, f32 logits: the same function; the combine
+# adds a token's K expert outputs in another order (one f32 rounding each).
+# A token at a near-tie of its router can still go to another expert on
+# that rounding, and the capacity then drops other tokens downstream.  A
+# difference above SORTED_TOL passes only when every token the two
+# compared forwards route apart sat at a near-tie in the gshard one (its
+# k-th and (k+1)-th router probabilities within NEAR_TIE_F32, about 8 f32
+# ulps of 1), the difference stays within PREFILL_TOL_F32, and every
+# layer's MoE block, sorted vs gshard on one input, is within
+# MOE_LOCAL_TOL.
+SORTED_TOL = 1e-4
+NEAR_TIE_F32 = 1e-6
+# A layer's MoE block, sorted vs gshard on one f32 input: the routing is
+# the same, the combine adds a token's K expert outputs in another order
+# (tests/test_moe_dispatch.py's 1e-5).
+MOE_LOCAL_TOL = dict(rtol=1e-5, atol=1e-5)
+# what the earlier phases may leave allocated when this one starts
+FAMILIES_START_MAX_BYTES = 1 << 30
+
+
+def _family_batch(smoke, cfg, seed: int):
+    """The family's prefill batch at 2 x 2048 rows, made on the card from
+    a seeded generator: tokens; frames (encoder); 256 patches before
+    2048 - 256 tokens (vlm)."""
+    torch = smoke.torch
+    g = torch.Generator(device=smoke.dev).manual_seed(seed)
+    B, S = PREFILL_B, PREFILL_S
+    if cfg.family == "encoder":
+        return {"frames": torch.randn((B, S, cfg.d_input_stub),
+                                      generator=g, device=smoke.dev),
+                "targets": torch.randint(0, cfg.vocab, (B, S), generator=g,
+                                         device=smoke.dev)}
+    n_txt = S - cfg.stub_seq
+    batch = {"tokens": torch.randint(0, cfg.vocab, (B, n_txt), generator=g,
+                                     device=smoke.dev)}
+    if cfg.family == "vlm":
+        batch["patch_embeds"] = torch.randn(
+            (B, cfg.stub_seq, cfg.d_input_stub), generator=g,
+            device=smoke.dev)
+    return batch
+
+
+def _counted(smoke, fn):
+    """(result, launches, plain calls, wall s) of ``fn()``: the counters
+    set to 0 just before it and read just after a synchronize."""
+    from repro_torch import _build
+    _build.reset_counters()
+    t0 = time.perf_counter()
+    out = fn()
+    smoke.sync()
+    return (out, dict(_build.LAUNCHES), dict(_build.PLAIN_CALLS),
+            time.perf_counter() - t0)
+
+
+def _finite_max(t) -> float:
+    """The largest |value| that is not a masked vocabulary entry (-1e30)."""
+    a = t.float().abs()
+    return float(a[a < 1e29].max())
+
+
+def _kernel_vs_ref(smoke, what, run, expected, card):
+    """``run(dtype, impl)`` in f32 and bf16, each with ``impl="kernel"``
+    (counted: exactly ``expected`` launches, no plain call) held against
+    ``impl="ref"``: f32 within PREFILL_TOL_F32, bf16 within twice the bf16
+    ref's distance to the f32 kernel result (BF16_REF_FACTOR: if the
+    kernel path's bf16 result is no further from the f32 one than bf16
+    compute's own, the two bf16 results are within twice that; phase 3
+    (ii) holds zamba2 to once it).  Returns the per-dtype records and the
+    f32 kernel result."""
+    torch = smoke.torch
+    res, f32_out = {}, None
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype)[6:]
+        got, launches, plain, wall = _counted(
+            smoke, lambda: run(dtype, "kernel"))
+        if launches != expected or plain:
+            raise AssertionError(f"{what} {name}: launches {launches}, plain "
+                                 f"calls {plain}; expected {expected} and "
+                                 f"none")
+        ref, _, _, wall_ref = _counted(smoke, lambda: run(dtype, "ref"))
+        if not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"{what} {name}: non-finite output")
+        err = float((got - ref).abs().max())
+        if f32_out is None:
+            f32_out, tol = got, PREFILL_TOL_F32
+        else:
+            tol = BF16_REF_FACTOR * float((ref - f32_out).abs().max())
+        if err > tol:
+            raise AssertionError(f"{what} {name}: kernel vs ref max abs diff "
+                                 f"{err:.3g} > {tol:.3g}")
+        res[name] = {"launches": launches, "plain_calls": plain,
+                     "max_abs_diff_vs_ref": err, "tol": tol,
+                     "out_max_abs": _finite_max(got),
+                     "wall_s": wall, "wall_ref_s": wall_ref}
+        print(f"families: {what} {name}: launches {launches}, plain calls "
+              f"{plain}; kernel vs ref max abs diff {err:.3g} (tol "
+              f"{tol:.3g}, values up to {_finite_max(got):.2f}); wall "
+              f"{wall:.3f} s, ref {wall_ref:.3f} s on {card}")
+    return res, f32_out
+
+
+# Two bf16 results, each within bf16's own error e of the f32 one, are
+# within 2e of each other: holding them to e (as phase 3 (ii) does for
+# zamba2) fails by chance when the kernel path's error is as large as the
+# ref path's (pixtral-12b's bf16 prefill on an NVIDIA H100 80GB HBM3 at
+# 700 W: 0.133 against e = 0.130).
+BF16_REF_FACTOR = 2
+
+
+def _routed(smoke, cfg, run, keep_inputs=False):
+    """``run()`` with `moe.moe_block` wrapped, so that each MoE layer of
+    the forward that ``run`` makes also records its tokens' routing: the
+    top-k experts (sorted) and the gap between the k-th and (k+1)-th
+    router probabilities, from `moe._router_probs` on the block's own
+    input (one (B*S, d) x (d, E) product and a sort a layer beside the
+    forward).  Returns (run's result, [(experts, gap)] a layer, and
+    [(layer params, block input)] a layer if ``keep_inputs``, held rather
+    than copied)."""
+    torch = smoke.torch
+    from repro_torch.models import lm, moe
+    mcfg, K = lm.moe_config(cfg), cfg.moe.top_k
+    block, routes, inputs = moe.moe_block, [], []
+
+    def recording(p, c, x, *args, **kwargs):
+        with torch.no_grad():
+            probs = torch.softmax(moe._router_probs(p, mcfg, x), dim=-1)
+            vals, idx = moe._top_k(probs, K + 1)
+        routes.append((idx[..., :K].sort(dim=-1).values,
+                       vals[..., K - 1] - vals[..., K]))
+        if keep_inputs:
+            inputs.append((p, x))
+        return block(p, c, x, *args, **kwargs)
+
+    moe.moe_block = recording
+    try:
+        out = run()
+    finally:
+        moe.moe_block = block
+    return out, routes, inputs
+
+
+def _apart(base, other):
+    """Routings of two forwards compared layer by layer: (tokens whose
+    top-k experts differ, the layers that hold any, the smallest top-k
+    probability gap among those tokens in ``base``)."""
+    n, layers, gap = 0, [], None
+    for li, ((e0, g0), (e1, _)) in enumerate(zip(base, other)):
+        moved = (e0 != e1).any(dim=-1)
+        m = int(moved.sum())
+        if m:
+            n += m
+            layers.append(li)
+            g = float(g0[moved].min())
+            gap = g if gap is None else min(gap, g)
+    return n, layers, gap
+
+
+def _moe_local(smoke, cfg, inputs):
+    """Each layer's MoE block, sorted against gshard on that layer's own
+    f32 input (MOE_LOCAL_TOL): the largest difference."""
+    torch = smoke.torch
+    from repro_torch.models import lm, moe
+    mcfg, worst = lm.moe_config(cfg), 0.0
+    with torch.no_grad():
+        for li, (p, h) in enumerate(inputs):
+            a, _ = moe.moe_block(p, mcfg, h, torch.float32, impl="gshard")
+            b, _ = moe.moe_block(p, mcfg, h, torch.float32, impl="sorted")
+            d = (a - b).abs()
+            if bool((d > MOE_LOCAL_TOL["atol"]
+                     + MOE_LOCAL_TOL["rtol"] * a.abs()).any()):
+                raise AssertionError(
+                    f"{cfg.name} layer {li}: MoE block sorted vs gshard on "
+                    f"one input, max abs diff {float(d.max()):.3g} beyond "
+                    f"{MOE_LOCAL_TOL}")
+            worst = max(worst, float(d.max()))
+    return worst
+
+
+def _moe_aux(smoke, cfg, params, batch, dtype):
+    """One more kernel forward of the prefill's backbone: the MoE aux
+    values (``frac_dropped`` above all) and, from CUDA events, the span and
+    the flash-attention kernels' share of it."""
+    torch = smoke.torch
+    from repro_torch.models import lm
+    events = {}
+    undo = _timed_kernels(events)
+    try:
+        span = (torch.cuda.Event(enable_timing=True),
+                torch.cuda.Event(enable_timing=True))
+        span[0].record()
+        x, pos, _ = lm.embed_inputs(cfg, params, batch, dtype)
+        _, aux = lm.backbone(cfg, params, x, pos, dtype, "kernel", "none")
+        span[1].record()
+        smoke.sync()
+    finally:
+        undo()
+    fa = sum(a.elapsed_time(b) for a, b in events.get("flash_attention", []))
+    return ({k: float(v) for k, v in aux.items()},
+            span[0].elapsed_time(span[1]), fa)
+
+
+def _free(smoke):
+    gc.collect()
+    smoke.torch.cuda.empty_cache()
+    smoke.torch.cuda.reset_peak_memory_stats()
+
+
+def _moe_serve(smoke, cfg, params, card):
+    """`ServeEngine` on qwen2-moe in f32 and bf16, each dtype's tokens held
+    against a teacher-forced `lm.decode_step` loop in the same dtype over
+    the same prompts, fed the engine's own tokens after the prompt.  (The
+    engine's first token is not held against a prefill's argmax: a prefill
+    drops over-capacity tokens at C = int(1.25 * 4 * S / 64), decode at
+    S = 1 has C = 1 a row and drops none.)"""
+    torch = smoke.torch
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import Request, ServeEngine
+    prompts = np.random.default_rng(1).integers(
+        0, cfg.vocab, (MOE_REQUESTS, MOE_PROMPT)).astype(np.int32)
+    max_len = MOE_PROMPT + MOE_NEW + 8
+    res = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype)[6:]
+        eng = ServeEngine(cfg, params, batch_slots=MOE_SLOTS,
+                          max_len=max_len, dtype=dtype, device=smoke.dev)
+        for rid in range(MOE_REQUESTS):
+            eng.submit(Request(rid=rid, prompt=prompts[rid],
+                               max_new=MOE_NEW))
+        done, launches, plain, wall = _counted(
+            smoke, lambda: {r.rid: r.out for r in eng.run_until_drained()})
+        if sorted(done) != list(range(MOE_REQUESTS)) or any(
+                len(v) != MOE_NEW for v in done.values()):
+            raise AssertionError(f"moe serve {name}: tokens {done}")
+        steps = MOE_PROMPT + MOE_NEW - 1
+        # the teacher-forced loop
+        caches = lm.init_caches(cfg, MOE_REQUESTS, max_len, dtype,
+                                device=smoke.dev)
+        forced, margins = [], []
+        t0 = time.perf_counter()
+        for pos in range(steps):
+            col = (prompts[:, pos] if pos < MOE_PROMPT else
+                   np.array([done[r][pos - MOE_PROMPT]
+                             for r in range(MOE_REQUESTS)], np.int32))
+            lg, caches = lm.decode_step(
+                cfg, params, caches,
+                torch.as_tensor(col[:, None], device=smoke.dev), pos, dtype)
+            if pos >= MOE_PROMPT - 1:
+                top2 = lg[:, -1].float().topk(2, dim=-1).values
+                margins.append((top2[:, 0] - top2[:, 1]).min().item())
+                forced.append(lg[:, -1].argmax(dim=-1).cpu().numpy())
+        smoke.sync()
+        wall_forced = time.perf_counter() - t0
+        forced = np.stack(forced, axis=1)
+        engine_tokens = np.array([done[r] for r in range(MOE_REQUESTS)])
+        if not np.array_equal(forced, engine_tokens):
+            raise AssertionError(f"moe serve {name}: engine tokens "
+                                 f"{engine_tokens.tolist()} != teacher-forced "
+                                 f"decode {forced.tolist()}")
+        res[name] = {"wall_s": wall, "decode_steps": steps,
+                     "steps_per_s": steps / wall,
+                     "generated_tok_per_s": MOE_REQUESTS * MOE_NEW / wall,
+                     "teacher_forced_wall_s": wall_forced,
+                     "min_top2_margin": min(margins),
+                     "launches": launches, "plain_calls": plain}
+        print(f"families: {cfg.name} ServeEngine {name}, {MOE_REQUESTS} "
+              f"requests x {MOE_PROMPT}-token prompts, {MOE_NEW} new tokens, "
+              f"{MOE_SLOTS} slots: {steps} decode steps in {wall:.2f} s "
+              f"({steps / wall:.2f} steps/s); tokens equal to the "
+              f"teacher-forced decode ({wall_forced:.2f} s; smallest top-2 "
+              f"margin {min(margins):.3g}) on {card}")
+        del eng, caches, lg
+    return res
+
+
+def families_main_path(smoke, card):
+    """Phase 3 (v): qwen2-moe-a2.7b at full width and depth (prefill f32 /
+    bf16 against `impl="ref"`, sorted against gshard, `ServeEngine`
+    against a teacher-forced decode), pixtral-12b at full width and depth
+    (prefill of 256 patches + 1792 tokens, head dim 160) and hubert-xlarge
+    at full width and depth (prefill and loss on 2048 frames,
+    bidirectional)."""
+    torch = smoke.torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import layers as L
+    from repro_torch.models import lm
+    t_phase = time.perf_counter()
+    _free(smoke)
+    start = torch.cuda.memory_allocated()
+    print(f"families: {start / 2**30:.3f} GiB allocated on the card before "
+          f"the phase (at most {FAMILIES_START_MAX_BYTES / 2**30:.0f} GiB)")
+    if start > FAMILIES_START_MAX_BYTES:
+        raise AssertionError(f"families: {start / 2**30:.2f} GiB still "
+                             f"allocated from earlier phases")
+    res = {"start_allocated_bytes": start, "card": card}
+
+    def model(arch, seed):
+        cfg = get_config(arch)
+        t0 = time.perf_counter()
+        params = lm.init_params(
+            cfg, torch.Generator(device=smoke.dev).manual_seed(seed),
+            device=smoke.dev)
+        smoke.sync()
+        entry = {"config": cfg.name, "family": cfg.family,
+                 "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+                 "head_dim": cfg.head_dim,
+                 "n_params": sum(t.numel() for t in _leaves(params)),
+                 "init_s": time.perf_counter() - t0}
+        print(f"families: {cfg.name} ({cfg.family}) at full width, "
+              f"{cfg.n_layers} layers, d_model {cfg.d_model}, head dim "
+              f"{cfg.head_dim}: {entry['n_params']:,} f32 parameters made on "
+              f"the card in {entry['init_s']:.1f} s")
+        return cfg, params, entry
+
+    def done(entry, t0):
+        entry["max_memory_allocated_bytes"] = torch.cuda.max_memory_allocated()
+        entry["s"] = time.perf_counter() - t0
+        print(f"families: {entry['config']}: peak "
+              f"{entry['max_memory_allocated_bytes'] / 2**30:.2f} GiB "
+              f"allocated (torch.cuda.max_memory_allocated), {entry['s']:.1f}"
+              f" s on {card}")
+
+    # qwen2-moe-a2.7b at full width and depth
+    t0 = time.perf_counter()
+    cfg, params, entry = model(MOE_ARCH, 0)
+    batch = _family_batch(smoke, cfg, 10)
+    expected = {"flash_attention": cfg.n_layers}
+
+    routes = {}
+
+    def prefill(dtype, impl):
+        out, routes[str(dtype)[6:], impl], _ = _routed(
+            smoke, cfg, lambda: lm.prefill(cfg, params, batch, dtype, impl,
+                                           device=smoke.dev))
+        return out
+
+    entry["prefill"], f32_logits = _kernel_vs_ref(
+        smoke, f"{cfg.name} prefill {PREFILL_B}x{PREFILL_S}", prefill,
+        expected, card)
+    routings = PREFILL_B * PREFILL_S * cfg.n_layers
+    for name in ("float32", "bfloat16"):
+        n, layers, gap = _apart(routes[name, "kernel"], routes[name, "ref"])
+        entry["prefill"][name]["routed_apart_from_ref"] = {
+            "tokens": n, "of": routings, "layers": layers, "min_gap": gap}
+        print(f"families: {cfg.name} prefill {name}: {n} of {routings:,} "
+              f"token routings differ between the kernel and ref forwards "
+              f"held above ({len(layers)} layers; smallest top-k "
+              f"probability gap among them {gap}) on {card}")
+
+    def sorted_prefill():
+        x, pos, _ = lm.embed_inputs(cfg, params, batch, torch.float32)
+        x, _ = lm.backbone(cfg, params, x, pos, torch.float32, "kernel",
+                           "none", "sorted")
+        return lm.mask_vocab_pad(cfg, L.unembed_logits(
+            params["head"], x[:, -1:], torch.float32))
+
+    (got, sorted_routes, inputs), launches, plain, wall = _counted(
+        smoke, lambda: _routed(smoke, cfg, sorted_prefill, keep_inputs=True))
+    err = float((got - f32_logits).abs().max())
+    local = _moe_local(smoke, cfg, inputs)
+    del inputs
+    n, layers, gap = _apart(routes["float32", "kernel"], sorted_routes)
+    near_tie = bool(n) and gap <= NEAR_TIE_F32 and err <= PREFILL_TOL_F32
+    if launches != expected or plain or (err > SORTED_TOL and not near_tie):
+        raise AssertionError(
+            f"moe sorted prefill: launches {launches}, plain {plain}, max "
+            f"|sorted - gshard| {err:.3g} (tol {SORTED_TOL}; {n} tokens "
+            f"routed apart, smallest gap {gap}, near-tie {NEAR_TIE_F32}, cap "
+            f"{PREFILL_TOL_F32})")
+    entry["sorted_f32"] = {"max_abs_diff_vs_gshard": err, "tol": SORTED_TOL,
+                           "within_tol": err <= SORTED_TOL,
+                           "routed_apart": {"tokens": n, "layers": layers,
+                                            "min_gap": gap},
+                           "moe_local_max_abs_diff": local,
+                           "wall_s": wall, "launches": launches}
+    print(f"families: {cfg.name} prefill f32, sorted dispatch: max |logit "
+          f"diff| against gshard {err:.3g} (tol {SORTED_TOL}"
+          + ("" if err <= SORTED_TOL else
+             f"; beyond it, within {PREFILL_TOL_F32}, through near-ties")
+          + f"); {n} tokens routed apart from the gshard forward (layers "
+          f"{layers}, smallest top-k probability gap {gap}, near-tie "
+          f"{NEAR_TIE_F32}); each layer's MoE block sorted vs gshard on "
+          f"its own input {local:.3g} (tol {MOE_LOCAL_TOL}); wall "
+          f"{wall:.3f} s, launches {launches} on {card}")
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype)[6:]
+        aux, span_ms, fa_ms = _moe_aux(smoke, cfg, params, batch, dtype)
+        entry["prefill"][name].update(aux=aux, span_ms=span_ms,
+                                      flash_attention_ms=fa_ms)
+        print(f"families: {cfg.name} prefill {name}: frac_dropped "
+              f"{aux['frac_dropped']:.5f}, lb_loss {aux['lb_loss']:.5f}, "
+              f"z_loss {aux['z_loss']:.5f} (a layer's mean); backbone span "
+              f"{span_ms:.1f} ms (CUDA events), flash_attention {fa_ms:.1f} "
+              f"ms of it on {card}")
+    del got, f32_logits, routes, sorted_routes
+    entry["serve"] = _moe_serve(smoke, cfg, params, card)
+    done(entry, t0)
+    res[cfg.name] = entry
+    del params, batch, prefill, sorted_prefill
+    _free(smoke)
+
+    # pixtral-12b at full width (head dim 160)
+    t0 = time.perf_counter()
+    cfg, params, entry = model(VLM_ARCH, 1)
+    batch = _family_batch(smoke, cfg, 11)
+    entry["prefill"], _ = _kernel_vs_ref(
+        smoke, f"{cfg.name} prefill {PREFILL_B}x({cfg.stub_seq} patches + "
+        f"{PREFILL_S - cfg.stub_seq} tokens)",
+        lambda dtype, impl: lm.prefill(cfg, params, batch, dtype, impl,
+                                       device=smoke.dev),
+        {"flash_attention": cfg.n_layers}, card)
+    done(entry, t0)
+    res[cfg.name] = entry
+    del params, batch
+    _free(smoke)
+
+    # hubert-xlarge at full width and depth (bidirectional, frames)
+    t0 = time.perf_counter()
+    cfg, params, entry = model(ENC_ARCH, 2)
+    batch = _family_batch(smoke, cfg, 12)
+    expected = {"flash_attention": cfg.n_layers}
+    entry["prefill"], _ = _kernel_vs_ref(
+        smoke, f"{cfg.name} prefill {PREFILL_B}x{PREFILL_S} frames",
+        lambda dtype, impl: lm.prefill(cfg, params, batch, dtype, impl,
+                                       device=smoke.dev), expected, card)
+
+    def loss(dtype, impl):
+        with torch.no_grad():
+            return lm.loss_fn(cfg, params, batch, dtype, impl, "none")[0]
+
+    entry["loss"], _ = _kernel_vs_ref(
+        smoke, f"{cfg.name} loss {PREFILL_B}x{PREFILL_S} frames", loss,
+        expected, card)
+    done(entry, t0)
+    res[cfg.name] = entry
+    del params, batch, loss
+    _free(smoke)
+    res["s"] = time.perf_counter() - t_phase
     return res
 
 
@@ -1850,6 +2336,74 @@ def lm_kernel_rows(smoke, card, launches):
         "shape": f"({b}, {h}, {nc}, {L}, {p}), n={n}, f32", "card": card})
     return rows
 
+
+# the three new families' attention at their prefill shapes, as the model
+# calls the kernel (grouped K/V expanded to the query heads first):
+# (name, (B, H, S, D), causal)
+FAMILY_ATTN = (("qwen2-moe-a2.7b", (2, 16, 2048, 128), True),
+               ("hubert-xlarge", (2, 16, 2048, 80), False),
+               ("pixtral-12b", (2, 32, 2048, 160), True))
+
+
+def family_attention_rows(smoke, card, fam):
+    """Phase 4 rows of `flash_attention` at the three families' prefill
+    shapes: each held against `attention_ref` (f32 and bf16, FA_TOL), then
+    timed beside its plain version, SDPA and its bound; ``launches`` is
+    the count in one f32 prefill of phase 3 (v)."""
+    torch = smoke.torch
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    rows = []
+    for i, (arch, (B, H, S, D), causal) in enumerate(FAMILY_ATTN):
+        shapes = []
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype)[6:]
+            q, k, v = (smoke.randn((B, H, S, D), 200 + 3 * i + j, dtype)
+                       for j in range(3))
+            err = smoke.close(
+                "flash_attention", f"{arch} prefill shape ({B},{H},{S},{D}) "
+                f"causal={causal} {name}",
+                fa_kernel.flash_attention_bhsd(q, k, v, causal=causal),
+                fa_ref.attention_ref(q, k, v, causal), **FA_TOL[name],
+                tag=f"{name} {arch} shape")
+            pairs = S * (S + 1) // 2 if causal else S * S
+            flops = 4 * B * H * D * pairs
+            nbytes = 4 * B * H * S * D * q.element_size()
+            peak = ALU_OPS_PER_S if name == "float32" else BF16_FLOPS_PER_S
+            t_ops = flops / peak * 1e3
+            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            shapes.append({
+                "dtype": name, "shape": [B, H, S, D], "causal": causal,
+                "max_abs_err": err,
+                "ms": smoke.device_ms(lambda: fa_kernel.flash_attention_bhsd(
+                    q, k, v, causal=causal), reps=20),
+                "plain_ms": smoke.timeit(lambda: fa_ref.attention_ref(
+                    q, k, v, causal), reps=3),
+                "library_ms": smoke.device_ms(
+                    lambda: torch.nn.functional.scaled_dot_product_attention(
+                        q, k, v, is_causal=causal), reps=20),
+                "bound_ms": max(t_ops, t_bytes),
+                "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                "flops": flops, "bytes": nbytes})
+            del q, k, v
+        head = shapes[0]
+        launches = fam[arch]["prefill"]["float32"]["launches"][
+            "flash_attention"]
+        rows.append({
+            "name": "flash_attention", "route": "cuda",
+            "source": SOURCES["flash_attention"][0],
+            "replaces": SOURCES["flash_attention"][1],
+            "launches": launches,
+            "path": f"lm.prefill({arch}, 2 x 2048, f32)",
+            "max_abs_err": max(s["max_abs_err"] for s in shapes),
+            "ms": head["ms"], "plain_ms": head["plain_ms"],
+            "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+            "library_ms": head["library_ms"],
+            "library": "torch.nn.functional.scaled_dot_product_attention",
+            "shape": f"({B}, {H}, {S}, {D}) "
+                     f"{'causal' if causal else 'bidirectional'} f32",
+            "shapes": shapes, "card": card})
+    return rows
 
 def engine_breakdown(smoke, cachesim, runner, main_s, card):
     """Phase 3 (i)'s breakdown of `run_cachex("skylake_sp")` by engine
@@ -2555,6 +3109,14 @@ def main() -> int:
     out["phases"]["train_s"] = time.perf_counter() - t0
     out["train"] = train
 
+    fam = families_main_path(smoke, card)
+    out["phases"]["families_s"] = fam["s"]
+    out["families"] = fam
+    print(f"families: phase seconds {fam['s']:.1f} ("
+          + ", ".join(f"{k} {v['s']:.1f}" for k, v in fam.items()
+                      if isinstance(v, dict) and "s" in v)
+          + f") on {card}")
+
     # -- 4. times -----------------------------------------------------------------
     # "ms" is device time per launch (Smoke.device_ms), "plain_ms" the
     # plain version's time per call, host included (Smoke.timeit).
@@ -2795,6 +3357,18 @@ def main() -> int:
               f"{s['touched_rows']}, state bytes its design moves "
               f"{s['state_bytes_moved']}, rows copied {s['rows_copied']}) "
               f"on {card}")
+    fam_rows = family_attention_rows(smoke, card, fam)
+    for r in fam_rows:
+        for sh in r["shapes"]:
+            print(f"time flash_attention {r['path']} {sh['dtype']} "
+                  f"{tuple(sh['shape'])} "
+                  f"{'causal' if sh['causal'] else 'bidirectional'}: "
+                  f"{sh['ms']:.4f} ms (plain {sh['plain_ms']:.2f} ms, bound "
+                  f"{sh['bound_ms']:.7f} ms by {sh['bound_by']}, library "
+                  f"{sh['library_ms']:.4f} ms, max abs err "
+                  f"{sh['max_abs_err']:.3g}), {r['launches']} launches a "
+                  f"prefill, on {card}")
+    rows += fam_rows
     out["kernels"] = rows
     out["phases"]["total_s"] = time.perf_counter() - t_all
     if args.out:

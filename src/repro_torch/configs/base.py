@@ -100,6 +100,12 @@ class ArchConfig:
             return _pad_to(self.n_kv_heads, TP_DEGREE)
         return self.n_kv_heads
 
+    @property
+    def supports_decode(self) -> bool:
+        """Whether the family decodes token by token (the encoder does
+        not)."""
+        return self.family != "encoder"
+
 
 @dataclasses.dataclass(frozen=True)
 class ShapeSpec:

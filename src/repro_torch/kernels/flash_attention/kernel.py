@@ -20,9 +20,11 @@ from repro_torch.kernels.flash_attention.ref import NEG_INF, attention_ref
 
 __all__ = ["NEG_INF", "flash_attention_bhsd"]
 
-#: query rows per CUDA block and the largest head dim the kernel takes
+#: query rows per CUDA block, and the largest head dim the kernel takes:
+#: 160, pixtral-12b's, the widest of the registered configs (the Pallas
+#: kernel takes any head dim; wider ones raise here)
 BLOCK_Q = 128
-MAX_HEAD_DIM = 128
+MAX_HEAD_DIM = 160
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -49,7 +51,8 @@ def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     B, Hq, Sq, D = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
     if D > MAX_HEAD_DIM:
-        raise ValueError(f"flash_attention: head dim {D} > {MAX_HEAD_DIM}")
+        raise ValueError(f"flash_attention: head dim {D} > {MAX_HEAD_DIM}, "
+                         f"the widest the CUDA kernel takes")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash_attention: dtypes {q.dtype}, {k.dtype}, "
                         f"{v.dtype}; expected one of float32, bfloat16")

@@ -4,7 +4,8 @@
         [--reduced] [--requests 6] [--max-new 8] [--device cuda]
 
 Random parameters from ``--seed`` (a ``torch.Generator`` on the device),
-served by `ServeEngine` in bf16.  ``--device`` defaults to the CUDA card;
+served by `ServeEngine` in bf16: any family that decodes (vlm text-only);
+for the encoder (hubert-xlarge) the CLI exits with the engine's error.  ``--device`` defaults to the CUDA card;
 ``--device cpu`` runs the plain PyTorch path.
 """
 
@@ -41,8 +42,11 @@ def main(argv=None):
         cfg = reduced_config(cfg)
     device = torch.device(args.device)
     params = lm.init_params(cfg, args.seed, device=device)
-    eng = ServeEngine(cfg, params, batch_slots=args.slots,
-                      max_len=args.max_len, device=device)
+    try:
+        eng = ServeEngine(cfg, params, batch_slots=args.slots,
+                          max_len=args.max_len, device=device)
+    except ValueError as e:   # the encoder has no decode
+        raise SystemExit(f"serve: {e}") from None
     rng = np.random.default_rng(args.seed)
     for rid in range(args.requests):
         prompt = rng.integers(0, cfg.vocab,

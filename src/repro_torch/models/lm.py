@@ -1,14 +1,18 @@
-"""Language-model assembly for the dense, ssm and hybrid families: the
-port of `repro.models.lm` (training loss, prefill and decode).
+"""Language-model assembly for every family of the JAX package: the port
+of `repro.models.lm` (training loss, prefill and decode).
 
 Families:
   dense    GQA transformer (qwen2.5-14b, yi-6b, qwen1.5-4b/0.5b)
+  moe      GQA transformer with MoE FFNs (qwen2-moe, llama4-scout;
+           `models.moe`, auxiliary losses summed over the layers)
   ssm      attention-free Mamba2/SSD stack (mamba2-2.7b)
   hybrid   Mamba2 stack with a shared attention+MLP block applied before
            every `hybrid_every` layers, alternating `n_shared_blocks`
            parameter sets (zamba2-2.7b)
-The moe, encoder and vlm families are not ported yet (ROADMAP.md) and
-raise `NotImplementedError`.
+  encoder  bidirectional encoder over precomputed frame embeddings
+           (hubert-xlarge; GELU MLP, no token table, no decode)
+  vlm      decoder LM with precomputed image-patch embeddings prepended
+           (pixtral-12b; decode is text-only)
 
 Parameters are nested dicts of tensors with a leading stacked `layers`
 axis, key for key the JAX package's pytree, so `params_from_numpy` carries
@@ -20,6 +24,8 @@ kernels have no backward (nor do the JAX package's), so training runs
 ``impl="ref"``, differentiated by autograd; a kernel given an input that
 requires grad raises.  ``remat`` checkpoints the same units as the JAX
 `scan` body (a layer; a hybrid group) with `torch.utils.checkpoint`.
+``moe_impl`` picks the MoE dispatch (``"gshard"`` or ``"sorted"``, the
+same function).
 """
 
 from __future__ import annotations
@@ -38,21 +44,25 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as m2
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.attention import AttnConfig
 from repro_torch.models.mamba2 import MambaConfig
+from repro_torch.models.moe import MoeConfig
 
-__all__ = ["attn_config", "mamba_config", "init_params", "mask_vocab_pad",
-           "backbone", "embed_inputs", "init_caches", "decode_step",
-           "prefill", "loss_fn", "params_from_numpy", "caches_from_numpy"]
+__all__ = ["attn_config", "moe_config", "mamba_config", "init_params",
+           "mask_vocab_pad", "backbone", "embed_inputs", "init_caches",
+           "decode_step", "prefill", "loss_fn", "params_from_numpy",
+           "caches_from_numpy"]
 
-_FAMILIES = ("dense", "ssm", "hybrid")
+_FAMILIES = ("dense", "moe", "ssm", "hybrid", "encoder", "vlm")
+# families built of attention + MLP (or MoE) layers with a KV cache
+_ATTN_FAMILIES = ("dense", "moe", "encoder", "vlm")
 
 
 def _check_family(cfg: ArchConfig) -> None:
     if cfg.family not in _FAMILIES:
-        raise NotImplementedError(
-            f"family {cfg.family!r} ({cfg.name}) is not ported to PyTorch "
-            f"yet: the port runs {', '.join(_FAMILIES)} (see ROADMAP.md)")
+        raise ValueError(f"family {cfg.family!r} ({cfg.name}): expected "
+                         f"one of {', '.join(_FAMILIES)}")
 
 
 # -- config adapters -----------------------------------------------------------
@@ -69,6 +79,16 @@ def attn_config(cfg: ArchConfig) -> AttnConfig:
     )
 
 
+def moe_config(cfg: ArchConfig) -> MoeConfig:
+    m = cfg.moe
+    return MoeConfig(
+        d_model=cfg.d_model, n_experts=m.n_experts_padded,
+        n_experts_real=m.n_experts, top_k=m.top_k,
+        d_ff_expert=m.d_ff_expert, d_ff_shared=m.d_ff_shared,
+        shared_gated=m.shared_gated, capacity_factor=m.capacity_factor,
+        group_size=m.group_size)
+
+
 def mamba_config(cfg: ArchConfig) -> MambaConfig:
     s = cfg.ssm
     return MambaConfig(d_model=cfg.d_model, d_state=s.d_state,
@@ -82,6 +102,19 @@ def _stack(trees):
     if isinstance(trees[0], dict):
         return {k: _stack([t[k] for t in trees]) for k in trees[0]}
     return torch.stack(trees)
+
+
+def _stack_init(n: int, make):
+    """``n`` trees from ``make()``, in order, stacked along a new leading
+    axis: each is copied into its slot and dropped, so the memory used is
+    the stack and one tree (a full-width MoE stack would not fit twice)."""
+    first = make()
+    out = _map(lambda a: a.new_empty((n,) + tuple(a.shape)), first)
+    _map(lambda o, a: o[0].copy_(a), out, first)
+    del first
+    for i in range(1, n):
+        _map(lambda o, a: o[i].copy_(a), out, make())
+    return out
 
 
 def _index(tree, i: int):
@@ -110,7 +143,7 @@ def params_from_numpy(tree, device, dtype=None):
     """The JAX parameter pytree, as nested dicts of numpy arrays (e.g.
     ``jax.tree_util.tree_map(np.asarray, params)``), as the port's dict of
     tensors on ``device`` (in ``dtype`` where given, else each array's
-    own)."""
+    own: the MoE router and shared gate stay f32 beside bf16 weights)."""
     dev = repro_torch.resolve_device(device)
     return _map(lambda a: _tensor(a, dev, dtype), tree)
 
@@ -126,19 +159,23 @@ def caches_from_numpy(tree, device):
 
 def _init_layer(cfg: ArchConfig, gen: torch.Generator, dtype):
     d = cfg.d_model
-    if cfg.family == "dense":
-        return {"norm_attn": L.init_rms_norm(d, dtype, gen.device),
-                "norm_mlp": L.init_rms_norm(d, dtype, gen.device),
-                "attn": attn.init_attention(gen, attn_config(cfg), dtype),
-                "mlp": L.init_mlp(gen, d, cfg.d_ff, dtype)}
+    if cfg.family in _ATTN_FAMILIES:
+        p = {"norm_attn": L.init_rms_norm(d, dtype, gen.device),
+             "norm_mlp": L.init_rms_norm(d, dtype, gen.device),
+             "attn": attn.init_attention(gen, attn_config(cfg), dtype)}
+        if cfg.family == "moe":
+            p["moe"] = moe_mod.init_moe(gen, moe_config(cfg), dtype)
+        else:
+            p["mlp"] = L.init_mlp(gen, d, cfg.d_ff, dtype)
+        return p
     return {"norm_attn": L.init_rms_norm(d, dtype, gen.device),
             "ssm": m2.init_mamba(gen, mamba_config(cfg), dtype)}
 
 
 def init_params(cfg: ArchConfig, gen, dtype=torch.float32, device=None):
-    """Random parameters with the JAX pytree's keys and shapes.  ``gen`` is
-    a ``torch.Generator`` on ``device`` or an int seed for one; ``device``
-    None means the CUDA card."""
+    """Random parameters with the JAX pytree's keys, shapes and dtypes.
+    ``gen`` is a ``torch.Generator`` on ``device`` or an int seed for one;
+    ``device`` None means the CUDA card."""
     _check_family(cfg)
     dev = repro_torch.resolve_device(device)
     if isinstance(gen, int):
@@ -146,17 +183,24 @@ def init_params(cfg: ArchConfig, gen, dtype=torch.float32, device=None):
     if gen.device.type != dev.type:
         raise ValueError(f"init_params: generator on {gen.device}, "
                          f"parameters on {dev}")
-    params: Dict = {"embed": L.init_embed(gen, cfg.vocab_padded, cfg.d_model,
-                                          dtype)}
-    params["layers"] = _stack([_init_layer(cfg, gen, dtype)
-                               for _ in range(cfg.n_layers)])
+    stub = cfg.d_input_stub
+    if cfg.family == "encoder":   # frames in, no token table
+        params: Dict = {"embed": {"proj": L._normal(
+            gen, (stub, cfg.d_model), dtype) * stub ** -0.5}}
+    else:
+        params = {"embed": L.init_embed(gen, cfg.vocab_padded, cfg.d_model,
+                                        dtype)}
+        if cfg.family == "vlm":   # image patches in beside the tokens
+            params["embed"]["proj"] = L._normal(
+                gen, (stub, cfg.d_model), dtype) * stub ** -0.5
+    params["layers"] = _stack_init(cfg.n_layers,
+                                   lambda: _init_layer(cfg, gen, dtype))
     if cfg.hybrid_every:
-        params["shared_blocks"] = _stack([
-            {"attn": attn.init_attention(gen, attn_config(cfg), dtype),
-             "mlp": L.init_mlp(gen, cfg.d_model, cfg.d_ff, dtype),
-             "norm_attn": L.init_rms_norm(cfg.d_model, dtype, dev),
-             "norm_mlp": L.init_rms_norm(cfg.d_model, dtype, dev)}
-            for _ in range(cfg.n_shared_blocks)])
+        params["shared_blocks"] = _stack_init(cfg.n_shared_blocks, lambda: {
+            "attn": attn.init_attention(gen, attn_config(cfg), dtype),
+            "mlp": L.init_mlp(gen, cfg.d_model, cfg.d_ff, dtype),
+            "norm_attn": L.init_rms_norm(cfg.d_model, dtype, dev),
+            "norm_mlp": L.init_rms_norm(cfg.d_model, dtype, dev)})
     params["final_norm"] = L.init_rms_norm(cfg.d_model, dtype, dev)
     params["head"] = L.init_unembed(gen, cfg.d_model, cfg.vocab_padded,
                                     dtype)
@@ -173,12 +217,21 @@ def mask_vocab_pad(cfg: ArchConfig, logits: torch.Tensor) -> torch.Tensor:
 
 # -- forward blocks ---------------------------------------------------------------
 
-def _transformer_layer(cfg, p, x, positions, compute_dtype, impl):
+def _transformer_layer(cfg, p, x, positions, compute_dtype, impl,
+                       moe_impl="gshard"):
+    """Attention + MLP (SwiGLU; GELU for the encoder) or MoE.  Returns
+    (x, the MoE aux losses or None)."""
     h = L.rms_norm(x, p["norm_attn"])
     x = x + attn.attention_train(p["attn"], attn_config(cfg), h, positions,
                                  compute_dtype, impl)
     h = L.rms_norm(x, p["norm_mlp"])
-    return x + L.mlp_swiglu(p["mlp"], h, compute_dtype)
+    if cfg.family == "moe":
+        out, aux = moe_mod.moe_block(p["moe"], moe_config(cfg), h,
+                                     compute_dtype, impl=moe_impl)
+        return x + out, aux
+    if cfg.family == "encoder":
+        return x + L.mlp_gelu(p["mlp"], h, compute_dtype), None
+    return x + L.mlp_swiglu(p["mlp"], h, compute_dtype), None
 
 
 def _mamba_layer(cfg, p, x, compute_dtype, impl):
@@ -217,17 +270,24 @@ def _remat(fn, policy: str):
 
 def backbone(cfg: ArchConfig, params, x: torch.Tensor,
              positions: torch.Tensor, compute_dtype=torch.bfloat16,
-             impl: str = "kernel", remat: str = "full") -> torch.Tensor:
-    """Layer stack -> final norm.  x: (B,S,d) embeddings.  (The JAX
-    function also returns the MoE auxiliary losses, which these families
-    do not have.)  ``remat`` applies per layer (dense, ssm) or per group
-    of a shared block and its Mamba2 layers (hybrid), as the JAX scan."""
+             impl: str = "kernel", remat: str = "full",
+             moe_impl: str = "gshard"):
+    """Layer stack -> final norm.  x: (B,S,d) embeddings.  Returns (x, aux):
+    the MoE aux losses (``lb_loss``, ``z_loss``, ``frac_dropped``) summed
+    over the layers and divided by ``n_layers``, f32 zeros for families
+    without experts, as the JAX function.  ``remat`` applies per layer
+    (dense, moe, encoder, vlm, ssm) or per group of a shared block and its
+    Mamba2 layers (hybrid), as the JAX scan."""
     _check_family(cfg)
     layers = _unstack(params["layers"], cfg.n_layers)
-    if cfg.family == "dense":
+    aux = {k: torch.zeros((), dtype=torch.float32, device=x.device)
+           for k in ("lb_loss", "z_loss", "frac_dropped")}
+    if cfg.family in _ATTN_FAMILIES:
         body = _remat(functools.partial(_transformer_layer, cfg), remat)
         for lp in layers:
-            x = body(lp, x, positions, compute_dtype, impl)
+            x, a = body(lp, x, positions, compute_dtype, impl, moe_impl)
+            if a is not None:
+                aux = {k: aux[k] + a[k] for k in aux}
     elif cfg.family == "ssm":
         body = _remat(functools.partial(_mamba_layer, cfg), remat)
         for lp in layers:
@@ -237,7 +297,8 @@ def backbone(cfg: ArchConfig, params, x: torch.Tensor,
         shared = _unstack(params["shared_blocks"], cfg.n_shared_blocks)
 
         def group(sp, glayers, h):
-            h = _transformer_layer(cfg, sp, h, positions, compute_dtype, impl)
+            h, _ = _transformer_layer(cfg, sp, h, positions, compute_dtype,
+                                      impl)
             for lp in glayers:
                 h = _mamba_layer(cfg, lp, h, compute_dtype, impl)
             return h
@@ -246,21 +307,47 @@ def backbone(cfg: ArchConfig, params, x: torch.Tensor,
         for gi in range(cfg.n_layers // every):
             x = body(shared[gi % cfg.n_shared_blocks],
                      layers[gi * every:(gi + 1) * every], x)
-    return L.rms_norm(x, params["final_norm"])
+    n = max(1, cfg.n_layers)
+    return (L.rms_norm(x, params["final_norm"]),
+            {k: v / n for k, v in aux.items()})
+
+
+def _inputs(cfg: ArchConfig, batch, dev, loss: bool = False):
+    """The batch entries ``cfg``'s family reads (``tokens``, ``frames``
+    or ``patch_embeds``, and ``targets`` for the loss), as tensors on
+    ``dev``; tensors or numpy may be given."""
+    keys = {"encoder": ("frames",), "vlm": ("tokens", "patch_embeds")}.get(
+        cfg.family, ("tokens",)) + (("targets",) if loss else ())
+    missing = [k for k in keys if k not in batch]
+    if missing:
+        raise KeyError(f"{cfg.name} ({cfg.family}) batch lacks {missing}")
+    return {k: torch.as_tensor(batch[k], device=dev) for k in keys}
 
 
 def embed_inputs(cfg: ArchConfig, params, batch,
                  compute_dtype=torch.bfloat16):
-    """Returns (x, positions, loss_mask) for a token batch."""
-    if cfg.family in ("encoder", "vlm"):
-        raise NotImplementedError(
-            f"{cfg.family} inputs (precomputed frame / patch embeddings) are "
-            f"not ported to PyTorch yet (see ROADMAP.md)")
-    x = L.embed_tokens(params["embed"], batch["tokens"], compute_dtype)
+    """Returns (x, positions, loss_mask).  ``batch`` holds tensors on the
+    parameters' device: ``tokens`` (B,S); ``frames`` (B,S,d_input_stub)
+    for the encoder; ``patch_embeds`` (B,stub_seq,d_input_stub) beside
+    the tokens for vlm, whose image rows come first, share the positions
+    counted from 0 with the text rows and carry no loss."""
+    n_img = 0
+    if cfg.family == "encoder":
+        x = L.cast(batch["frames"], compute_dtype) @ L.cast(
+            params["embed"]["proj"], compute_dtype)
+    elif cfg.family == "vlm":
+        img = L.cast(batch["patch_embeds"], compute_dtype) @ L.cast(
+            params["embed"]["proj"], compute_dtype)
+        txt = L.embed_tokens(params["embed"], batch["tokens"], compute_dtype)
+        x = torch.cat([img, txt], dim=1)
+        n_img = img.shape[1]
+    else:
+        x = L.embed_tokens(params["embed"], batch["tokens"], compute_dtype)
     B, S = x.shape[:2]
     positions = torch.arange(S, device=x.device).expand(B, S)
-    return x, positions, torch.ones((B, S), dtype=torch.float32,
-                                    device=x.device)
+    mask = torch.ones((B, S), dtype=torch.float32, device=x.device)
+    mask[:, :n_img] = 0.0
+    return x, positions, mask
 
 
 # -- serving: prefill + decode ------------------------------------------------------
@@ -275,10 +362,19 @@ def _on(params, device) -> torch.device:
     return have
 
 
+def _refuse_decode(cfg: ArchConfig) -> None:
+    """The encoder has no decode: raise ``ValueError`` naming
+    ``supports_decode``."""
+    if not cfg.supports_decode:
+        raise ValueError(f"decode unsupported for family {cfg.family} "
+                         f"({cfg.name}: supports_decode is False)")
+
+
 def init_caches(cfg: ArchConfig, batch: int, max_len: int,
                 dtype=torch.bfloat16, device=None):
-    """Decode caches: KV caches in ``dtype`` (per layer for dense, per group
-    for the hybrid's shared attention), Mamba2 caches in f32 per layer."""
+    """Decode caches: KV caches in ``dtype`` (per layer for dense, moe and
+    vlm; per group for the hybrid's shared attention), Mamba2 caches in
+    f32 per layer; none for the encoder, which has no decode."""
     _check_family(cfg)
     dev = repro_torch.resolve_device(device)
 
@@ -289,22 +385,27 @@ def init_caches(cfg: ArchConfig, batch: int, max_len: int,
     if cfg.family in ("ssm", "hybrid"):
         caches["ssm"] = stacked(cfg.n_layers, m2.init_mamba_cache(
             batch, mamba_config(cfg), device=dev))
-    if cfg.family in ("dense", "hybrid"):
+    if cfg.family in ("dense", "moe", "vlm", "hybrid"):
         kv = attn.init_kv_cache(batch, max_len, attn_config(cfg), dtype, dev)
-        key, n = (("attn", cfg.n_layers) if cfg.family == "dense" else
-                  ("shared_attn", cfg.n_layers // cfg.hybrid_every))
+        key, n = (("shared_attn", cfg.n_layers // cfg.hybrid_every)
+                  if cfg.family == "hybrid" else ("attn", cfg.n_layers))
         caches[key] = stacked(n, kv)
     return caches
 
 
 def _decode_block(cfg, p, h, cache, pos, compute_dtype, cache_update):
-    """Attention + MLP on one token: a dense layer or a shared block."""
+    """Attention + MLP (or MoE, gshard) on one token: a layer or a shared
+    block."""
     hh = L.rms_norm(h, p["norm_attn"])
     out, new_cache = attn.attention_decode(p["attn"], attn_config(cfg), hh,
                                            cache, pos, compute_dtype,
                                            cache_update)
     h = h + out
     hh = L.rms_norm(h, p["norm_mlp"])
+    if "moe" in p:
+        o, _ = moe_mod.moe_block(p["moe"], moe_config(cfg), hh,
+                                 compute_dtype)
+        return h + o, new_cache
     return h + L.mlp_swiglu(p["mlp"], hh, compute_dtype), new_cache
 
 
@@ -321,12 +422,13 @@ def decode_step(cfg: ArchConfig, params, caches, tokens: torch.Tensor,
     """One-token decode.  tokens: (B,1); pos: int position.  Returns
     (logits (B,1,V) f32, new caches); the given caches are not modified.
     Decode runs no kernel (the JAX function's ``impl`` is unused there
-    too)."""
+    too).  vlm decodes text only; the encoder raises ``ValueError``."""
     _check_family(cfg)
+    _refuse_decode(cfg)
     x = L.embed_tokens(params["embed"], tokens, compute_dtype)
     layers = params["layers"]
     new = dict(caches)
-    if cfg.family == "dense":
+    if cfg.family in _ATTN_FAMILIES:
         kv = []
         for i in range(cfg.n_layers):
             x, c = _decode_block(cfg, _index(layers, i), x,
@@ -362,18 +464,20 @@ def decode_step(cfg: ArchConfig, params, caches, tokens: torch.Tensor,
 
 def prefill(cfg: ArchConfig, params, batch, compute_dtype=torch.bfloat16,
             impl: str = "kernel", device=None):
-    """Full-sequence prefill: last-position logits (B,1,V) f32 of
-    ``batch["tokens"]`` (B,S).  With ``impl="kernel"`` every attention runs
+    """Full-sequence prefill: last-position logits (B,1,V) f32 of the
+    family's batch: ``tokens`` (B,S), ``frames`` (encoder) or
+    ``patch_embeds`` beside the tokens (vlm), tensors or numpy, moved to
+    the parameters' device.  With ``impl="kernel"`` every attention runs
     the CUDA flash-attention kernel and every Mamba2 layer the CUDA SSD
     kernel.  Like the JAX function it returns no caches (the JAX
     signature's ``max_len`` and ``cache_dtype`` are unused there and
-    dropped here).  ``device`` None means the card; the parameters must
-    be there."""
+    dropped here).  ``device`` None means the card; the parameters must be
+    there."""
     dev = _on(params, device)
-    tokens = torch.as_tensor(batch["tokens"], device=dev)
-    x, positions, _ = embed_inputs(cfg, params, {"tokens": tokens},
+    x, positions, _ = embed_inputs(cfg, params, _inputs(cfg, batch, dev),
                                    compute_dtype)
-    x = backbone(cfg, params, x, positions, compute_dtype, impl, remat="none")
+    x, _ = backbone(cfg, params, x, positions, compute_dtype, impl,
+                    remat="none")
     return mask_vocab_pad(
         cfg, L.unembed_logits(params["head"], x[:, -1:], compute_dtype))
 
@@ -383,31 +487,34 @@ def prefill(cfg: ArchConfig, params, batch, compute_dtype=torch.bfloat16,
 def loss_fn(cfg: ArchConfig, params, batch, compute_dtype=torch.bfloat16,
             impl: str = "ref", remat: str = "full",
             moe_impl: str = "gshard"):
-    """Masked next-token cross-entropy: returns (loss, metrics).  ``batch``
-    holds ``tokens`` and ``targets`` (B,S), tensors on the parameters'
-    device or numpy.  Logits are f32 and the padded vocab entries are
-    masked before the log-sum-exp, as in the JAX function.  These families
-    have no MoE auxiliary losses: the metrics carry them as zeros, so the
-    total is the loss; ``moe_impl`` matters only for the moe family, which
-    is not ported."""
+    """Masked next-token (or per-frame) cross-entropy plus the MoE aux
+    losses: returns (total, metrics), total = ``loss + lb_loss + z_loss``
+    and metrics ``loss``, ``lb_loss``, ``z_loss`` and ``frac_dropped``, as
+    the JAX function.  ``batch`` holds the family's inputs (see
+    `prefill`) and ``targets`` (B,S), tensors on the parameters' device or
+    numpy; for vlm the targets cover the text rows and are padded over the
+    image rows, which the mask leaves out.  Logits are f32 and the padded
+    vocab entries are masked before the log-sum-exp.  Families without
+    experts carry the aux losses as zeros.  ``moe_impl`` is ``"gshard"``
+    or ``"sorted"``; anything else raises ``ValueError``."""
     _check_family(cfg)
-    if moe_impl != "gshard":
-        raise NotImplementedError(
-            f"moe_impl {moe_impl!r}: the moe family is not ported to "
-            f"PyTorch yet (see ROADMAP.md)")
+    if moe_impl not in moe_mod._IMPLS:
+        raise ValueError(f"moe_impl {moe_impl!r}: expected one of "
+                         f"{moe_mod._IMPLS}")
     dev = params["final_norm"].device
-    tokens = torch.as_tensor(batch["tokens"], device=dev)
-    targets = torch.as_tensor(batch["targets"], device=dev)
-    x, positions, mask = embed_inputs(cfg, params, {"tokens": tokens},
-                                      compute_dtype)
-    x = backbone(cfg, params, x, positions, compute_dtype, impl, remat)
+    inputs = _inputs(cfg, batch, dev, loss=True)
+    x, positions, mask = embed_inputs(cfg, params, inputs, compute_dtype)
+    x, aux = backbone(cfg, params, x, positions, compute_dtype, impl, remat,
+                      moe_impl)
     logits = mask_vocab_pad(
         cfg, L.unembed_logits(params["head"], x, compute_dtype))   # f32
+    targets = inputs["targets"].long()
+    if cfg.family == "vlm":   # only text positions carry loss
+        targets = torch.cat([targets.new_zeros(
+            (targets.shape[0], cfg.stub_seq)), targets], dim=1)
     lse = torch.logsumexp(logits, dim=-1)
-    tgt = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
+    tgt = torch.gather(logits, -1, targets[..., None])[..., 0]
     nll = (lse - tgt) * mask
     loss = nll.sum() / torch.clamp(mask.sum(), min=1.0)
-    zero = torch.zeros((), dtype=torch.float32, device=dev)
-    metrics = {"loss": loss, "lb_loss": zero, "z_loss": zero,
-               "frac_dropped": zero}
-    return loss, metrics
+    total = loss + aux["lb_loss"] + aux["z_loss"]
+    return total, {"loss": loss, **aux}

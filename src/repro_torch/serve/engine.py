@@ -87,11 +87,15 @@ class ReplicaRouter:
 
 class ServeEngine:
     """Serves requests on one device: ``device`` None means the CUDA card,
-    and the parameters must live on the device."""
+    and the parameters must live on the device.  Every family that
+    decodes is served (vlm text-only, through `lm.decode_step`); the
+    encoder, whose config has ``supports_decode`` False, is refused here
+    with ``ValueError``."""
 
     def __init__(self, cfg: ArchConfig, params, batch_slots: int = 8,
                  max_len: int = 512, dtype=torch.bfloat16,
                  router: Optional[ReplicaRouter] = None, device=None):
+        lm._refuse_decode(cfg)
         self.device = lm._on(params, device)
         self.cfg = cfg
         self.params = params

@@ -103,8 +103,12 @@ def _value_and_grad(loss_of, params, batch):
 
 def build_train_step(cfg: ArchConfig, hyper: TrainHyper):
     """Returns ``step_fn(state, batch) -> (state, metrics)``; ``batch``
-    holds ``tokens`` and ``targets`` (B,S) tensors on the state's device,
-    B a multiple of ``hyper.microbatches``."""
+    holds the family's inputs on the state's device (``tokens``;
+    ``frames`` for the encoder; ``patch_embeds`` beside the tokens for
+    vlm) and ``targets``, with a leading batch axis B that is a multiple
+    of ``hyper.microbatches``.  The gradient is that of `lm.loss_fn`'s
+    total (the loss plus the MoE aux losses), dispatched with
+    ``hyper.moe_impl``."""
     nm = hyper.microbatches
 
     def loss_of(p, mb):

@@ -71,9 +71,15 @@ class Trainer:
                                    self.device), 0
 
     def _device_batch(self, step: int):
+        """The step's batch on the device: every entry of the family's
+        batch, the frame and patch embeddings cast to bf16 as the JAX
+        trainer casts them."""
         host = make_batch(self.tcfg.data, self.cfg, self.shape, step)
-        return {k: torch.as_tensor(host[k], device=self.device)
-                for k in ("tokens", "targets")}
+        return {k: torch.as_tensor(v, device=self.device,
+                                   dtype=(torch.bfloat16
+                                          if k in ("frames", "patch_embeds")
+                                          else None))
+                for k, v in host.items()}
 
     def _sync(self) -> None:
         if self.device.type == "cuda":

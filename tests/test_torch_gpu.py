@@ -370,7 +370,10 @@ def _randn(dev, shape, seed, dtype=torch.float32, scale=1.0):
     (1, 130, 130, 2, 1, 72, True), (1, 70, 70, 2, 2, 5, True),
     # Sq != Sk both ways, causal and not; a GQA group of 8
     (1, 128, 384, 4, 2, 64, True), (1, 128, 384, 4, 2, 64, False),
-    (1, 384, 128, 2, 2, 80, True), (2, 256, 256, 16, 2, 64, True)])
+    (1, 384, 128, 2, 2, 80, True), (2, 256, 256, 16, 2, 64, True),
+    # pixtral-12b's head dim and the one below it, GQA 4, ragged S
+    (1, 200, 200, 8, 2, 160, True), (2, 130, 130, 8, 2, 160, False),
+    (1, 200, 200, 8, 2, 144, False), (2, 130, 130, 8, 2, 144, True)])
 def test_flash_attention_kernel_matches_plain(B, Sq, Sk, Hq, Hkv, D, causal,
                                               dtype):
     dev = _card()
@@ -412,8 +415,8 @@ def test_flash_attention_kernel_reads_views_off_the_16_byte_grid(D, causal,
 
 def test_flash_attention_kernel_refuses_what_it_cannot_take():
     dev = _card()
-    q = torch.zeros(1, 2, 16, 160, device=dev)
-    with pytest.raises(ValueError):
+    q = torch.zeros(1, 2, 16, 176, device=dev)     # past MAX_HEAD_DIM 160
+    with pytest.raises(ValueError, match="160"):
         fa_kernel.flash_attention_bhsd(q, q, q)
     h = q[..., :64].half()
     with pytest.raises(TypeError):
@@ -478,6 +481,34 @@ def test_reduced_prefill_on_the_card_runs_the_kernels(arch):
         else cfg.n_layers * ssd_kernel.LAUNCHES_PER_CALL)
     want = lm.prefill(cfg, params, {"tokens": tokens}, torch.float32,
                       "ref")
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("arch", ["qwen2_moe_a2p7b", "llama4_scout_17b_a16e",
+                                  "hubert_xlarge", "pixtral_12b"])
+def test_reduced_family_prefill_on_the_card_runs_the_kernels(arch):
+    """moe, encoder (frames, bidirectional) and vlm (patches + tokens):
+    one flash-attention launch a layer, no plain call, equal to
+    `impl="ref"` within 1e-4 (tests/test_torch_lm.py's tolerance)."""
+    from repro_torch.configs.base import get_config, reduced_config
+    from repro_torch.models import lm
+    dev = _card()
+    cfg = reduced_config(get_config(arch))
+    params = lm.init_params(cfg, 0)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (2, 48), device=dev,
+                                     generator=gen)}
+    if cfg.family == "encoder":
+        batch = {"frames": torch.randn((2, 64, cfg.d_input_stub),
+                                       device=dev, generator=gen)}
+    if cfg.family == "vlm":
+        batch["patch_embeds"] = torch.randn(
+            (2, cfg.stub_seq, cfg.d_input_stub), device=dev, generator=gen)
+    _build.reset_counters()
+    got = lm.prefill(cfg, params, batch, torch.float32, "kernel")
+    assert _build.PLAIN_CALLS == {}
+    assert _build.LAUNCHES["flash_attention"] == cfg.n_layers
+    want = lm.prefill(cfg, params, batch, torch.float32, "ref")
     torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
 
 

@@ -166,8 +166,18 @@ def test_prefill_equals_teacher_forced_decode(case):
     np.testing.assert_allclose(_np(lg), _np(pre), **ATOL)
 
 
-def test_unported_families_raise():
-    for arch in ("qwen2_moe_a2p7b", "hubert_xlarge", "pixtral_12b"):
-        cfg = reduced_config(get_config(arch))
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            lm.init_params(cfg, 0, device="cpu")
+def test_decode_and_engine_refuse_the_encoder():
+    """The encoder has no decode (``supports_decode`` False, as in the JAX
+    config): no caches, `decode_step` and `ServeEngine` raise."""
+    from repro_torch.serve.engine import ServeEngine
+    cfg = reduced_config(get_config("hubert_xlarge"))
+    assert not cfg.supports_decode
+    assert jreduced_config(jget_config("hubert_xlarge")).supports_decode \
+        is False
+    params = lm.init_params(cfg, 0, device="cpu")
+    assert lm.init_caches(cfg, B, MAX_LEN, torch.float32, device="cpu") == {}
+    with pytest.raises(ValueError, match="supports_decode"):
+        lm.decode_step(cfg, params, {}, torch.zeros((B, 1), dtype=torch.int32),
+                       0, torch.float32)
+    with pytest.raises(ValueError, match="supports_decode"):
+        ServeEngine(cfg, params, device="cpu")
