@@ -31,8 +31,12 @@ Four phases, in order; any failure exits non-zero:
              p = 32 with n = 128 and the zamba2-2.7b / mamba2-2.7b /
              pixtral-12b prefill shapes; `triad` against `triad_ref` (bit for bit) at
              the shapes of tests/test_kernels.py, the monitor's 64 MiB
-             probe (43,688 rows) and 1 GiB;
-3. main    — four paths, each check with the launch counters set to 0
+             probe (43,688 rows) and 1 GiB; the staged `triad` (its
+             ``block`` tile of shared memory) bit for bit at tiles of 1,
+             48, 49 and 227 KiB over 10,007 rows, the 228 KiB tile
+             refused with cudaErrorInvalidValue and a fitting tile equal
+             after it;
+3. main    — six paths, each check with the launch counters set to 0
              just before it and read just after:
              (i) `run_cachex("skylake_sp")`: the report must equal
              tests/data/torch_golden_run_cachex_skylake_sp.json, the engine
@@ -110,7 +114,19 @@ Four phases, in order; any failure exits non-zero:
              (256 patches + 1792 tokens), 40 launches; hubert-xlarge at
              full width and depth (48 layers, bidirectional): prefill and
              `lm.loss_fn` under no_grad on 2 x 2048 frames, 48 launches
-             each;
+             each (qwen2-moe's prefill walls are those of one more
+             forward each without the routing recorder, the recorded
+             ones printed beside);
+             (vi) the pod backend and the card's own probes:
+             `probe_effective_vmem(lo=1024, hi=NOMINAL_SMEM, align=1024)`
+             on the card, launching the staged triad, equal to the card's
+             `shared_memory_per_block_optin`; the tile pickers at that
+             budget (printed); `probe_axes(make_host_mesh())` on an NCCL
+             group of one rank (psum and ring return their input; times
+             printed with no limit); `run_pod_loop` on and off,
+             `PodFleetSim(12, 6)` and a `PodSession` export through
+             `CacheXSession.attach(backend="pod")` equal to
+             tests/data/torch_golden_pod_loop.json;
 4. times   — times each kernel with CUDA events at the main path's shapes
              beside its plain version, its bound and the PyTorch library
              call where one exists (the engine also at the Table 1
@@ -121,8 +137,9 @@ Four phases, in order; any failure exits non-zero:
              L2; the SSD's four stages by torch.profiler, profiled up to
              three times and any stage still missing named as lost;
              `flash_attention` also at the three families' prefill
-             shapes, one row each), and prints one `{"kernels": [...]}`
-             line.
+             shapes, one row each; the staged triad at the probe's one
+             227 KiB tile, and with that tile at 64 MiB and 1 GiB), and
+             prints one `{"kernels": [...]}` line.
 
 Before the kernels line, a `cost constants:` line; the line before the
 last is `nvidia-smi`'s name and power limit of the card; the last line is
@@ -140,6 +157,7 @@ import json
 import math
 import os
 import shutil
+import socket
 import subprocess
 import sys
 import tempfile
@@ -187,6 +205,8 @@ SOURCES = {
                  "src/repro/kernels/ssd_scan/kernel.py:87"),
     "triad": ("src/repro_torch/csrc/triad.cu",
               "src/repro/kernels/cache_probe/kernel.py:32"),
+    "triad_staged": ("src/repro_torch/csrc/triad.cu",
+                     "src/repro/kernels/cache_probe/kernel.py:32"),
 }
 
 
@@ -208,6 +228,7 @@ class Smoke:
         self.err_by = {}                      # the same per (kernel, tag)
         self.checks = {k: 0 for k in SOURCES}
         self.triad_library_gap = 0.0         # torch.addcmul vs the kernel
+        self.staged_refusal = None           # the 228 KiB tile's error
         self.engine_designs = {}              # geometry -> engine design
 
     # -- helpers -------------------------------------------------------------
@@ -828,6 +849,50 @@ class Smoke:
                                  f"{self.triad_library_gap:.3g} of its "
                                  f"rounding bound (> 1)")
 
+    def check_triad_staged(self):
+        """The staged triad (a tile of ``block`` rows of shared memory)
+        bit for bit against `triad_ref` at tiles of 1, 48, 49 and 227 KiB
+        over STAGED_ROWS rows (a multiple of none of them, so the last
+        tile is partial), the 48 KiB tile also on pointers off the 16-byte
+        grid; the 228 KiB tile refused with cudaErrorInvalidValue; then a
+        fitting launch still equal to `triad_ref`."""
+        from repro_torch import _build
+        from repro_torch.kernels.cache_probe import kernel, ref
+        torch = self.torch
+        a = self.randn((STAGED_ROWS, 128), 700)
+        b = self.randn((STAGED_ROWS, 128), 701)
+        s = torch.tensor([1.0 / 3.0], device=self.dev)
+        want = ref.triad_ref(a, b, s)
+        for kib in STAGED_TILES_KIB:
+            self.exact("triad_staged", f"{kib} KiB tile over {STAGED_ROWS} "
+                       f"rows", kernel.triad(a, b, s, block=kib * 2), want)
+        flat = self.randn((2 * STAGED_ROWS * 128 + 2,), 702)
+        n = STAGED_ROWS * 128
+        ma = flat[1:1 + n].view(STAGED_ROWS, 128)
+        mb = flat[n + 2:2 * n + 2].view(STAGED_ROWS, 128)
+        self.exact("triad_staged", "48 KiB tile, misaligned",
+                   kernel.triad(ma, mb, s, block=96),
+                   ref.triad_ref(ma, mb, s))
+        before = _build.LAUNCHES["triad_staged"]
+        try:
+            kernel.triad(a, b, s, block=STAGED_REFUSED_KIB * 2)
+        except _build.CudaError as e:
+            if e.code != _build.CUDA_ERROR_INVALID_VALUE:
+                raise
+            refused = str(e)
+        else:
+            raise AssertionError(f"triad_staged: a {STAGED_REFUSED_KIB} KiB "
+                                 f"tile was launched")
+        if _build.LAUNCHES["triad_staged"] != before:
+            raise AssertionError("triad_staged: a refused tile counted as a "
+                                 "launch")
+        self.sync()
+        self.exact("triad_staged", f"{STAGED_TILES_KIB[-1]} KiB tile after "
+                   f"the refusal", kernel.triad(a, b, s,
+                                                block=STAGED_TILES_KIB[-1]
+                                                * 2), want)
+        self.staged_refusal = refused
+
     def exact(self, kernel: str, what: str, got, want) -> None:
         """Float results equal bit for bit."""
         if got.shape != want.shape or got.dtype != want.dtype:
@@ -847,6 +912,13 @@ class Smoke:
 # the monitor's default probe size and the row arithmetic of
 # `measure_hbm_bandwidth` (three f32 streams, rows of 128, multiple of 8)
 TRIAD_MONITOR_BYTES = 64 * (1 << 20)
+# The staged triad's tiles (KiB; a row of 128 f32 is half a KiB): the
+# smallest, the largest without cudaFuncSetAttribute, the smallest that
+# needs it, the largest the card's opt-in limit allows, and the first over
+# it; a prime row count, so every tile's last one is partial.
+STAGED_TILES_KIB = (1, 48, 49, 227)
+STAGED_REFUSED_KIB = 228
+STAGED_ROWS = 10007
 
 
 def triad_rows(n_bytes: int) -> int:
@@ -1590,6 +1662,24 @@ def families_main_path(smoke, card):
           f"{NEAR_TIE_F32}); each layer's MoE block sorted vs gshard on "
           f"its own input {local:.3g} (tol {MOE_LOCAL_TOL}); wall "
           f"{wall:.3f} s, launches {launches} on {card}")
+    # The walls: the forwards above carry the routing recorder (a router
+    # product and a sort a layer), so each is timed once more without it,
+    # with the same inputs and counters; the recorded wall stays beside.
+    walls = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        walls[str(dtype)[6:]] = _counted(smoke, lambda: lm.prefill(
+            cfg, params, batch, dtype, "kernel", device=smoke.dev))[1:]
+    walls["sorted_f32"] = _counted(smoke, sorted_prefill)[1:]
+    for name, (launches, plain, wall) in walls.items():
+        if launches != expected or plain:
+            raise AssertionError(f"moe unrecorded {name} prefill: launches "
+                                 f"{launches}, plain {plain}")
+        rec = entry[name] if name == "sorted_f32" else entry["prefill"][name]
+        rec["recorded_wall_s"], rec["wall_s"] = rec["wall_s"], wall
+        print(f"families: {cfg.name} prefill {name} wall {wall:.3f} s "
+              f"unrecorded, {rec['recorded_wall_s']:.3f} s with the routing "
+              f"recorded (the forward the checks above read); launches "
+              f"{launches} on {card}")
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype)[6:]
         aux, span_ms, fa_ms = _moe_aux(smoke, cfg, params, batch, dtype)
@@ -1643,6 +1733,135 @@ def families_main_path(smoke, card):
     res[cfg.name] = entry
     del params, batch, loss
     _free(smoke)
+    res["s"] = time.perf_counter() - t_phase
+    return res
+
+
+# -- the pod backend and the card's own probes (phase 3 (vi)) ----------------------
+
+# the ring and all-reduce buffers of `probe_axes` on the card (f32 a rank)
+POD_ICI_FLOATS = 1 << 14
+
+
+def _free_port() -> int:
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def pod_main_path(smoke, card):
+    """Phase 3 (vi): `probe_effective_vmem` on the card (the staged
+    triad's largest tile, against the card's opt-in limit as the
+    hypercall oracle), the tile pickers at that budget, `probe_axes` on an
+    NCCL group of world size 1, and the pod loop, the 12-interval fleet
+    and a `PodSession` export against the golden the JAX package wrote
+    (tests/data/torch_golden_pod_loop.json)."""
+    torch = smoke.torch
+    import torch.distributed as dist
+    from repro_torch import _build
+    from repro_torch.core import CacheXSession
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.tpuprobe import ici_probe, pod_backend, vmem_probe
+    t_phase = time.perf_counter()
+    res = {"card": card}
+
+    # the effective shared memory of one block, probed by launches
+    verdicts = []
+    fits = vmem_probe._tile_fits_card
+
+    def recorded(tile_bytes):
+        ok = fits(tile_bytes)
+        verdicts.append((tile_bytes, ok))
+        return ok
+
+    vmem_probe._tile_fits_card = recorded
+    try:
+        _build.reset_counters()
+        t0 = time.perf_counter()
+        eff = vmem_probe.probe_effective_vmem(
+            lo=1024, hi=vmem_probe.NOMINAL_SMEM, align=1024)
+        smoke.sync()
+        probe_s = time.perf_counter() - t0
+        launches, plain = dict(_build.LAUNCHES), dict(_build.PLAIN_CALLS)
+    finally:
+        vmem_probe._tile_fits_card = fits
+    optin = int(torch.cuda.get_device_properties(0)
+                .shared_memory_per_block_optin)
+    res["vmem"] = {"effective_bytes": eff, "optin_bytes": optin,
+                   "launches": launches, "plain_calls": plain,
+                   "tiles_tried": verdicts, "s": probe_s}
+    print(f"pod: probe_effective_vmem(lo=1024, hi={vmem_probe.NOMINAL_SMEM}, "
+          f"align=1024) on the card: {eff} bytes; the card's "
+          f"shared_memory_per_block_optin {optin} bytes; {len(verdicts)} "
+          f"tiles tried {[(b, 'fits' if ok else 'refused') for b, ok in verdicts]},"
+          f" launches {launches}, plain calls {plain}, {probe_s:.3f} s on "
+          f"{card}")
+    if eff != optin or launches.get("triad_staged", 0) != sum(
+            ok for _, ok in verdicts) or not launches.get("triad_staged") \
+            or plain:
+        raise AssertionError(f"pod: effective shared memory {eff} against "
+                             f"the card's {optin}; launches {launches}, "
+                             f"plain calls {plain}, tiles {verdicts}")
+    picks = {"attention": {d: vmem_probe.pick_attention_blocks(eff, d)
+                           for d in (64, 80, 128, 160)},
+             "ssd_block_h": vmem_probe.pick_ssd_block(eff, 64, 128, 128)}
+    res["picks"] = picks
+    print(f"pod: tile pickers at {eff} bytes (printed only): attention "
+          f"(block_q, block_k) by head dim {picks['attention']}, SSD block_h "
+          f"(p 64, n 128, chunk 128) {picks['ssd_block_h']}")
+
+    # the link probe on an NCCL group of one rank
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{_free_port()}", world_size=1, rank=0)
+    try:
+        mesh = make_host_mesh()
+        for axis in mesh.mesh_dim_names:
+            x = smoke.randn((POD_ICI_FLOATS,), 800)
+            psum, _ = ici_probe._axis_psum_probe(mesh, axis, POD_ICI_FLOATS)
+            ring, _ = ici_probe._ring_permute_probe(mesh, axis,
+                                                    POD_ICI_FLOATS)
+            if not (torch.equal(psum(x), x) and torch.equal(ring(x), x)):
+                raise AssertionError(f"pod: the {axis} axis's psum or ring "
+                                     f"on one rank changed its input")
+        t0 = time.perf_counter()
+        stats = ici_probe.probe_axes(mesh, n_floats=POD_ICI_FLOATS)
+        ici_s = time.perf_counter() - t0
+    finally:
+        dist.destroy_process_group()
+    res["ici"] = {"mesh": list(mesh.shape), "stats": stats, "s": ici_s,
+                  "ranked": ici_probe.rank_axes_by_health(stats)}
+    print(f"pod: probe_axes(make_host_mesh() {tuple(mesh.shape)} on NCCL, "
+          f"n_floats {POD_ICI_FLOATS}): psum and ring return their input; "
+          + "; ".join(f"{a}: psum_s {v['psum_s']:.6g}, ring_s "
+                      f"{v['ring_s']:.6g}, slowdown {v['slowdown']:.6g}, "
+                      f"size {v['size']}" for a, v in stats.items())
+          + f" (no limit; one rank, so no link is crossed) in {ici_s:.3f} s "
+          f"on {card}")
+
+    # the pod model against the JAX package's golden
+    want = json.loads((DATA / "torch_golden_pod_loop.json").read_text())
+    fields = goldens().report_fields
+    t0 = time.perf_counter()
+    got = {"on": fields(pod_backend.run_pod_loop("on", seed=0)),
+           "off": fields(pod_backend.run_pod_loop("off", seed=0)),
+           "fleet_12_6": fields(pod_backend.PodFleetSim(
+               intervals=12, warmup=6).run())}
+    session = CacheXSession.attach(pod_backend.SimPod().slice(), "pod",
+                                   backend="pod", eager=True)
+    got["export"] = json.loads(json.dumps(session.export(), sort_keys=True))
+    loop_s = time.perf_counter() - t0
+    bad = [k for k in want if got[k] != want[k]]
+    if bad or not isinstance(session, pod_backend.PodSession):
+        raise AssertionError(f"pod: {bad} differ from the golden: "
+                             + "; ".join(f"{k}: {got[k]} != {want[k]}"
+                                         for k in bad))
+    res["loop"] = {"on": got["on"], "off": got["off"], "s": loop_s}
+    on, off = got["on"], got["off"]
+    print(f"pod: run_pod_loop on / off, PodFleetSim(12, 6) and the "
+          f"PodSession export equal the golden (p99 decode {on['p99_decode_ms']}"
+          f" / {off['p99_decode_ms']} ms, mean step {on['mean_step_s']} / "
+          f"{off['mean_step_s']} s) in {loop_s:.3f} s")
     res["s"] = time.perf_counter() - t_phase
     return res
 
@@ -1737,6 +1956,10 @@ def train_main_path(smoke, card):
                           compute_dtype=torch.bfloat16)
     t_setup = time.perf_counter()
     abstract = ts.abstract_train_state(cfg, hyper, smoke.dev)
+    if torch.cuda.memory_allocated() != start or any(
+            t.device.type != "meta" for t in tree_leaves(abstract)):
+        raise AssertionError("train: the abstract train state allocated "
+                             "on the card")
     ckpt_bytes = sum(t.numel() * t.element_size()
                      for t in tree_leaves(abstract))
     n_params = sum(t.numel() for t in tree_leaves(abstract.params))
@@ -2253,6 +2476,48 @@ def triad_kernel_row(smoke, card, launches):
            "monitor_host_tb_per_s": moved / float(np.median(host_s)) / 1e12,
            "shapes": shapes, "card": card}
     return row
+
+def triad_staged_row(smoke, card, launches):
+    """Phase 4 for the staged triad at its 227 KiB tile: device time at
+    the probe's shape (one tile, as `vmem_probe` launches it), and at the
+    monitor's 64 MiB and at 1 GiB with the same tile, beside its bound,
+    its plain version and `torch.addcmul`."""
+    torch = smoke.torch
+    from repro_torch.kernels.cache_probe import kernel, ref
+    block = STAGED_TILES_KIB[-1] * 2
+    shapes = []
+    for i, rows in enumerate((block, triad_rows(TRIAD_MONITOR_BYTES),
+                              triad_rows(1 << 30))):
+        a = smoke.randn((rows, 128), 900 + i)
+        b = smoke.randn((rows, 128), 910 + i)
+        s = torch.tensor([1.0 / 3.0], device=smoke.dev)
+        n = rows * 128
+        b_ms, b_by = bound(12 * n, 2 * n)
+        reps = 50 if rows < (1 << 18) else 20
+        shapes.append({
+            "rows": rows, "shape": [rows, 128], "block": block,
+            "tiles": -(-rows // block), "bytes_moved": 12 * n,
+            "ms": smoke.device_ms(lambda: kernel.triad(a, b, s, block=block),
+                                  reps=reps),
+            "plain_ms": smoke.timeit(lambda: ref.triad_ref(a, b, s),
+                                     reps=20),
+            "library_ms": smoke.device_ms(lambda: torch.addcmul(b, a, s),
+                                          reps=reps),
+            "bound_ms": b_ms, "bound_by": b_by})
+        del a, b
+    head = shapes[0]
+    return {"name": "triad_staged", "route": "cuda",
+            "source": SOURCES["triad_staged"][0],
+            "replaces": SOURCES["triad_staged"][1], "launches": launches,
+            "path": "probe_effective_vmem on the card -> the staged triad",
+            "max_abs_err": smoke.err["triad_staged"],
+            "ms": head["ms"], "plain_ms": head["plain_ms"],
+            "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+            "library_ms": head["library_ms"], "library": "torch.addcmul",
+            "shape": f"({head['rows']}, 128) f32, one {STAGED_TILES_KIB[-1]}"
+                     f" KiB tile",
+            "shapes": shapes, "card": card}
+
 
 def lm_kernel_rows(smoke, card, launches):
     """Phase 4 for the LM kernels: time at the zamba2 prefill shapes."""
@@ -3013,8 +3278,13 @@ def main() -> int:
     smoke.check_flash_attention()
     smoke.check_ssd_scan()
     smoke.check_triad()
+    smoke.check_triad_staged()
     smoke.sync()
     out["phases"]["kernels_s"] = time.perf_counter() - t0
+    print(f"kernels: triad_staged at tiles of {STAGED_TILES_KIB} KiB over "
+          f"{STAGED_ROWS} rows bit-exact vs plain, {STAGED_REFUSED_KIB} KiB "
+          f"refused ({smoke.staged_refusal}), a fitting tile bit-exact after "
+          f"it")
     print(f"kernels: cachesim_engine, lru_sets, prime_probe, triad bit-exact "
           f"vs plain (torch.addcmul at {smoke.triad_library_gap:.3f} of one "
           f"ulp of the product plus one of the result from the triad); max "
@@ -3116,6 +3386,10 @@ def main() -> int:
           + ", ".join(f"{k} {v['s']:.1f}" for k, v in fam.items()
                       if isinstance(v, dict) and "s" in v)
           + f") on {card}")
+
+    pod = pod_main_path(smoke, card)
+    out["phases"]["pod_s"] = pod["s"]
+    out["pod"] = pod
 
     # -- 4. times -----------------------------------------------------------------
     # "ms" is device time per launch (Smoke.device_ms), "plain_ms" the
@@ -3272,7 +3546,8 @@ def main() -> int:
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
         "library_ms": None, "us_per_step": head["us_per_step"],
         "latency_floor_ms": head["latency_floor_ms"],
-        "touch_us": touch["us_per_step"], "shapes": lru_shapes,
+        "touch_us": touch["us_per_step"], "touch": touch,
+        "shapes": lru_shapes,
         "shape": "({}, {}) x {}".format(*head["shape"]), "card": card})
 
     W, T = 8, 128
@@ -3297,6 +3572,9 @@ def main() -> int:
     rows += lm_kernel_rows(smoke, card, serve["prefill_float32"]["launches"])
     rows.append(triad_kernel_row(smoke, card,
                                  train["run"]["launches"]["triad"]))
+    staged = triad_staged_row(smoke, card,
+                              pod["vmem"]["launches"]["triad_staged"])
+    rows.append(staged)
     for r in rows:
         lib = (f", library {r['library_ms']:.4f} ms"
                if r["library_ms"] is not None else "")
@@ -3317,7 +3595,13 @@ def main() -> int:
               f"{sh['ms']:.4f} ms (plain {sh['plain_ms']:.2f} ms, bound "
               f"{sh['bound_ms']:.7f} ms by {sh['bound_by']}, library "
               f"{sh['library_ms']:.4f} ms) on {card}")
-    tr_row = rows[-1]
+    tr_row = rows[-2]
+    for sh in staged["shapes"]:
+        print(f"time triad_staged ({sh['rows']}, 128), {sh['tiles']} tile(s) "
+              f"of {sh['block']} rows: {sh['ms'] * 1e3:.2f} us "
+              f"({sh['bytes_moved'] / sh['ms'] / 1e9:.3f} TB/s); bound "
+              f"{sh['bound_ms'] * 1e3:.2f} us; plain {sh['plain_ms'] * 1e3:.2f}"
+              f" us; torch.addcmul {sh['library_ms'] * 1e3:.2f} us on {card}")
     for sh in tr_row["shapes"]:
         print(f"time triad ({sh['rows']}, 128) = {sh['n_bytes'] >> 20} MiB "
               f"probe, {sh['bytes_moved'] / 1e6:.1f} MB moved: "
@@ -3347,6 +3631,13 @@ def main() -> int:
               f"{sh['latency_floor_ms']:.4f} ms = {sh['shape'][2]} touches of "
               f"{lru['touch_us']:.4f} us, one row's 4096-step chain) on "
               f"{card}")
+    tch = lru["touch"]
+    print(f"time lru_touch, one row alone {tuple(tch['shape'])} (rows, ways, "
+          f"steps): {tch['ms']:.4f} ms, {tch['us_per_step']:.6f} us a touch "
+          f"(bound {tch['bound_ms']:.9f} ms by {tch['bound_by']}, "
+          f"{tch['bound_ms'] * 1e3 / tch['shape'][2]:.9f} us a touch; its "
+          f"latency floor is the chain itself, {tch['shape'][2]} dependent "
+          f"touches) on {card}")
     for s in engine_shapes:
         print(f"time cachesim_engine {s['entry']} {s['geometry']} "
               f"{tuple(s['shape'])}, {s['design']} design"

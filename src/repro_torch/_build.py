@@ -11,7 +11,7 @@ together).  The file name carries a digest of the sources and flags, so
 an edited source is rebuilt and a stale library is never loaded.  Every C
 entry point takes ``void*`` device pointers and the CUDA stream and
 returns a CUDA error code (``cudaGetLastError()`` after a launch);
-:func:`call` raises on a non-zero code.
+:func:`call` raises :class:`CudaError` on a non-zero code.
 
 Launch counters live here: each wrapper adds one to :data:`LAUNCHES`
 under its kernel's name where it launches the kernel, and the plain
@@ -66,6 +66,7 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
     "triad": {
         "triad_launch": (_P,) * 4 + (_L,) + (_P,),
         "triad_timed_launch": (_P,) * 4 + (_L, _I, _F) + (_P,) * 3,
+        "triad_staged_launch": (_P,) * 4 + (_L, _I, _P),
     },
 }
 SOURCES = tuple(SIGNATURES)
@@ -155,21 +156,36 @@ def lib(name: str) -> ctypes.CDLL:
 
 
 def _error_fn(fn: str) -> str:
-    """``<kernel>[_timed]_launch`` comes with ``<kernel>_error(code)``,
-    which returns ``cudaGetErrorString(code)`` from the library's own
-    runtime."""
-    return fn.replace("_timed_launch", "_launch").replace("_launch",
-                                                          "_error")
+    """``<kernel>[_timed|_staged]_launch`` comes with
+    ``<kernel>_error(code)``, which returns ``cudaGetErrorString(code)``
+    from the library's own runtime."""
+    for form in ("_timed_launch", "_staged_launch"):
+        fn = fn.replace(form, "_launch")
+    return fn.replace("_launch", "_error")
+
+
+#: ``cudaErrorInvalidValue``: a launch asked for more than the card gives
+#: (threads, shared memory), or an attribute was set beyond its limit
+CUDA_ERROR_INVALID_VALUE = 1
+
+
+class CudaError(RuntimeError):
+    """A C entry point returned CUDA error ``code`` (a ``cudaError_t``)."""
+
+    def __init__(self, code: int, message: str):
+        super().__init__(message)
+        self.code = code
 
 
 def call(name: str, fn: str, *args) -> None:
-    """Call C entry point ``fn`` of source ``name``; raise on a CUDA error."""
+    """Call C entry point ``fn`` of source ``name``; raise
+    :class:`CudaError` on a CUDA error."""
     so = lib(name)
     code = getattr(so, fn)(*args)
     if code != 0:
         msg = getattr(so, _error_fn(fn))(code)
-        raise RuntimeError(f"repro_torch: {fn} failed with CUDA error "
-                           f"{code}: {msg.decode() if msg else '?'}")
+        raise CudaError(code, f"repro_torch: {fn} failed with CUDA error "
+                              f"{code}: {msg.decode() if msg else '?'}")
 
 
 def ptr(t: Optional[torch.Tensor]) -> Optional[int]:

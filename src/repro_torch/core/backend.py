@@ -15,10 +15,13 @@ Two protocols, both structural (duck-typed — nothing has to inherit):
 
 :class:`ProbeTarget`
     what the ProbePlan executor (`repro_torch.core.probeplan.execute`) needs
-    from a probing target.  `GuestVM` satisfies it natively.  Because the
+    from a probing target.  `GuestVM` satisfies it natively; a pod
+    tenant slice (`repro_torch.tpuprobe.pod_backend.PodSlice`) satisfies
+    it by encoding its probes (HBM timing lanes, per-axis link pings,
+    VMEM tile-fit trials) as int64 lane descriptors.  Because the
     executor only sees this surface, every plan facility — `fuse`,
-    `split_result`, `plan_cost`, signatures — works on any target that
-    satisfies it.
+    `split_result`, `plan_cost`, signatures — works on non-LLC plans
+    unchanged.
 
 :class:`ProbeBackend`
     the session-construction seam: ``attach`` (stage lifecycle against a
@@ -28,9 +31,11 @@ Two protocols, both structural (duck-typed — nothing has to inherit):
 Backends self-register in :data:`_BACKENDS`.  ``"llc"`` — the classic
 VEV→VCOL→VSCAN path — is registered eagerly and is *bit-identical* to
 pre-backend sessions (the default ``attach()`` path doesn't even go
-through the registry, so the LLC fast path cannot regress).  It is the
-only backend this package registers; :func:`register_backend` accepts
-further ones, eagerly or lazily by ``"module.path:Attr"``.
+through the registry, so the LLC fast path cannot regress).  ``"pod"``
+is registered lazily by module path to keep `repro_torch.core`
+import-light: `repro_torch.tpuprobe.pod_backend` only loads when first
+requested.  :func:`register_backend` accepts further backends, eagerly
+or lazily by ``"module.path:Attr"``.
 
 Export routing: each backend declares the export ``format`` strings it
 owns; :func:`backend_for_format` lets ``CacheXSession.import_`` dispatch
@@ -111,6 +116,7 @@ class LLCBackend:
 #: name -> backend instance, or "module:attr" string resolved on first use
 _BACKENDS: Dict[str, object] = {
     "llc": LLCBackend(),
+    "pod": "repro_torch.tpuprobe.pod_backend:PodBackend",
 }
 
 

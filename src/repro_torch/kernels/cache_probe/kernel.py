@@ -4,45 +4,81 @@ kernels, the ports of the Pallas kernels of
 `repro.kernels.cache_probe.kernel`.
 
 On CUDA tensors each launches its kernel (and counts the launch in
-``_build.LAUNCHES`` under its name) or raises; on CPU tensors it runs the
-plain version in `ref` (`triad` counts that in ``_build.PLAIN_CALLS``).
+``_build.LAUNCHES`` under its name: ``triad_staged`` for the triad with a
+``block`` tile) or raises; on CPU tensors it runs the plain version in
+`ref` (`triad` counts that in ``_build.PLAIN_CALLS``, under the same
+names).
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
 from repro_torch import _build
 from repro_torch.kernels.cache_probe.ref import prime_probe_ref, triad_ref
 
-__all__ = ["triad", "triad_device_seconds", "prime_probe"]
+__all__ = ["triad", "triad_device_seconds", "prime_probe", "TileError"]
 
 #: the widest row `csrc/cache_probe.cu` takes: four rows of W tags and W
 #: ages in the shared memory of one block
 PRIME_PROBE_MAX_WAYS = _build.SMEM_PER_BLOCK // (4 * 2 * 4)
 
 
-def triad(a: torch.Tensor, b: torch.Tensor,
-          scale: torch.Tensor) -> torch.Tensor:
-    """a, b: (N, 128) f32 (any equal shapes on the card); scale: (1,) f32
-    on the same device.  Returns ``a * scale + b``.  Unlike the Pallas
-    kernel (blocks of min(512, N) rows, N a multiple of the block) it takes
-    any N; its ``block`` and ``interpret`` arguments have no counterpart."""
+#: the largest staged tile a launch can name: its bytes set the kernel's
+#: dynamic shared memory through a C ``int``
+MAX_TILE_BYTES = 2 ** 31 - 1
+
+
+class TileError(ValueError):
+    """A staged `triad` tile larger than any launch can request."""
+
+
+def triad(a: torch.Tensor, b: torch.Tensor, scale: torch.Tensor, *,
+          block: Optional[int] = None) -> torch.Tensor:
+    """a, b: (N, 128) f32 (any equal shapes on the card without
+    ``block``); scale: (1,) f32 on the same device.  Returns ``a * scale +
+    b``.  Unlike the Pallas kernel (blocks of min(block, N) rows, N a
+    multiple of the block) it takes any N.
+
+    ``block=None`` streams (the monitor's probe).  ``block=rows`` stages
+    ``a`` through a tile of exactly ``rows`` x 128 f32 of shared memory, as
+    the Pallas kernel's VMEM tile: every tile is whole but the last, which
+    holds N mod rows rows (when that is not 0).  The card refuses a tile
+    over its opt-in shared-memory limit with ``_build.CudaError`` (code
+    ``_build.CUDA_ERROR_INVALID_VALUE``); a tile over
+    :data:`MAX_TILE_BYTES` raises :class:`TileError` here.  The Pallas
+    kernel's ``interpret`` argument has no counterpart."""
     if a.shape != b.shape or tuple(scale.shape) != (1,):
         raise ValueError(f"triad: shapes a {tuple(a.shape)}, b "
                          f"{tuple(b.shape)}, scale {tuple(scale.shape)}")
+    name = "triad" if block is None else "triad_staged"
+    if block is not None:
+        if a.dim() != 2 or a.shape[1] != 128 or block < 1:
+            raise ValueError(f"triad: a staged tile of {block} rows over "
+                             f"a {tuple(a.shape)}: rows of 128, block >= 1")
+        if block * 512 > MAX_TILE_BYTES:
+            raise TileError(f"triad: a tile of {block} rows is "
+                            f"{block * 512} bytes, over {MAX_TILE_BYTES}")
     _build.refuse_grad("triad", a, b, scale)
     if a.device.type == "cpu":
-        _build.PLAIN_CALLS["triad"] += 1
+        _build.PLAIN_CALLS[name] += 1
         return triad_ref(a, b, scale)
     _build.check_cuda("triad", a, b, scale, dtypes=(torch.float32,) * 3)
     out = torch.empty_like(a)
-    _build.call("triad", "triad_launch", _build.ptr(a), _build.ptr(b),
-                _build.ptr(scale), _build.ptr(out), a.numel(),
-                _build.stream(a.device))
-    _build.LAUNCHES["triad"] += 1
+    if block is None:
+        _build.call("triad", "triad_launch", _build.ptr(a), _build.ptr(b),
+                    _build.ptr(scale), _build.ptr(out), a.numel(),
+                    _build.stream(a.device))
+    elif a.shape[0]:
+        _build.call("triad", "triad_staged_launch", _build.ptr(a),
+                    _build.ptr(b), _build.ptr(scale), _build.ptr(out),
+                    a.shape[0], int(block), _build.stream(a.device))
+    else:
+        return out
+    _build.LAUNCHES[name] += 1
     return out
 
 

@@ -7,7 +7,9 @@ module's activation sharding hints are no-ops on one device and are
 dropped here.
 
 Random initializers draw from an explicit ``torch.Generator`` and put the
-tensors on the generator's device.
+tensors on the generator's device.  Given :data:`SHAPE_ONLY` in its place,
+they build the same tree as "meta" tensors: shapes and dtypes, no values,
+no memory (the counterpart of ``jax.eval_shape`` over an initializer).
 """
 
 from __future__ import annotations
@@ -26,7 +28,20 @@ def cast(x: torch.Tensor, dtype) -> torch.Tensor:
     return x.to(dtype) if x.dtype != dtype else x
 
 
+class _ShapeOnly:
+    """Stands where an initializer takes its ``torch.Generator``: its
+    device is "meta", so every tensor made on ``gen.device`` holds a shape
+    and a dtype only, and :func:`_normal` draws nothing."""
+
+    device = torch.device("meta")
+
+
+SHAPE_ONLY = _ShapeOnly()
+
+
 def _normal(gen: torch.Generator, shape, dtype) -> torch.Tensor:
+    if gen is SHAPE_ONLY:
+        return torch.empty(shape, dtype=dtype, device=gen.device)
     return torch.randn(shape, generator=gen, device=gen.device, dtype=dtype)
 
 

@@ -50,7 +50,7 @@ from repro_torch.models.mamba2 import MambaConfig
 from repro_torch.models.moe import MoeConfig
 
 __all__ = ["attn_config", "moe_config", "mamba_config", "init_params",
-           "mask_vocab_pad", "backbone", "embed_inputs", "init_caches",
+           "abstract_params", "mask_vocab_pad", "backbone", "embed_inputs", "init_caches",
            "decode_step", "prefill", "loss_fn", "params_from_numpy",
            "caches_from_numpy"]
 
@@ -183,6 +183,21 @@ def init_params(cfg: ArchConfig, gen, dtype=torch.float32, device=None):
     if gen.device.type != dev.type:
         raise ValueError(f"init_params: generator on {gen.device}, "
                          f"parameters on {dev}")
+    return _make_params(cfg, gen, dtype)
+
+
+def abstract_params(cfg: ArchConfig, dtype=torch.float32):
+    """The parameter tree of :func:`init_params` as "meta" tensors: the
+    same keys, shapes and dtypes, built without a generator and without
+    allocating (`repro.models.lm.abstract_params`, ``jax.eval_shape``)."""
+    _check_family(cfg)
+    return _make_params(cfg, L.SHAPE_ONLY, dtype)
+
+
+def _make_params(cfg: ArchConfig, gen, dtype):
+    """The parameter tree, drawn from ``gen`` on its device (or shapes
+    only, for ``L.SHAPE_ONLY``)."""
+    dev = gen.device
     stub = cfg.d_input_stub
     if cfg.family == "encoder":   # frames in, no token table
         params: Dict = {"embed": {"proj": L._normal(

@@ -18,7 +18,8 @@ import torch
 
 from repro_torch._tree import tree_leaves, tree_map
 
-__all__ = ["AdamWConfig", "AdamWState", "init_state", "lr_at",
+__all__ = ["AdamWConfig", "AdamWState", "init_state", "abstract_state",
+           "lr_at",
            "global_norm", "apply_updates"]
 
 
@@ -47,6 +48,13 @@ def init_state(params) -> AdamWState:
     dev = tree_leaves(params)[0].device
     return AdamWState(step=torch.zeros((), dtype=torch.int32, device=dev),
                       mu=tree_map(zeros, params), nu=tree_map(zeros, params))
+
+
+def abstract_state(params) -> AdamWState:
+    """:func:`init_state`'s tree as "meta" tensors (shapes and dtypes; no
+    memory), whatever device ``params`` lie on."""
+    return init_state(tree_map(lambda p: torch.empty(
+        p.shape, dtype=p.dtype, device="meta"), params))
 
 
 def lr_at(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:

@@ -18,12 +18,20 @@ import torch
 
 from repro_torch._tree import tree_map
 
-__all__ = ["init_error_state", "compress_tensor", "compress_grads"]
+__all__ = ["init_error_state", "abstract_error_state", "compress_tensor",
+           "compress_grads"]
 
 
 def init_error_state(params):
     return tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
                                           device=p.device), params)
+
+
+def abstract_error_state(params):
+    """:func:`init_error_state`'s tree as "meta" tensors (shapes and
+    dtypes; no memory), whatever device ``params`` lie on."""
+    return tree_map(lambda p: torch.empty(p.shape, dtype=torch.float32,
+                                          device="meta"), params)
 
 
 def _quantize(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -67,10 +67,15 @@ def make_train_state(cfg: ArchConfig, hyper: TrainHyper, gen,
 def abstract_train_state(cfg: ArchConfig, hyper: TrainHyper,
                          device=None) -> TrainState:
     """The state's structure, shapes and dtypes as "meta" tensors (the
-    target of `checkpoint.ckpt.restore`).  It is built on ``device`` once
-    and dropped there, so no memory stays in use."""
-    state = make_train_state(cfg, hyper, 0, device=device)
-    return tree_map(lambda t: torch.empty_like(t, device="meta"), state)
+    target of `checkpoint.ckpt.restore`), built from `lm.abstract_params`,
+    `adamw.abstract_state` and `grad_compress.abstract_error_state`: no
+    generator, no allocation.  ``device``, where the state would live,
+    changes nothing in its shapes; it is taken so that callers may name
+    it."""
+    params = lm.abstract_params(cfg)
+    return TrainState(params=params, opt=adamw.abstract_state(params),
+                      ef=(grad_compress.abstract_error_state(params)
+                          if hyper.compress_cross_pod else None))
 
 
 def train_state_from_numpy(tree, device) -> TrainState:

@@ -17,6 +17,7 @@ import torch
 
 from repro_torch import _build
 from repro_torch.core import cachesim, platforms, runner
+from repro_torch.kernels.cache_probe import kernel as probe_kernel
 from repro_torch.kernels.cache_probe import ops as probe_ops
 from repro_torch.kernels.cache_probe import ref as probe_ref
 from repro_torch.kernels.cachesim_step import ops as sim_ops
@@ -539,6 +540,48 @@ def test_triad_kernel_ragged_and_misaligned():
         a, b = flat[lo:lo + 4099], flat[4100 + lo:8199 + lo]
         assert torch.equal(probe_ops.probe_triad(a, b, s),
                            probe_ref.triad_ref(a, b, s))
+
+
+@pytest.mark.parametrize("kib", [1, 48, 49, 227])
+def test_staged_triad_tiles_match_plain(kib):
+    """The staged triad's tile of ``kib`` KiB over a prime row count (its
+    last tile partial): equal bit for bit, one launch."""
+    dev = _card()
+    a = _randn(dev, (10007, 128), 23)
+    b = _randn(dev, (10007, 128), 24)
+    s = torch.tensor([1.0 / 3.0], device=dev)
+    n0 = _build.LAUNCHES["triad_staged"]
+    got = probe_kernel.triad(a, b, s, block=2 * kib)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["triad_staged"] == n0 + 1
+    assert torch.equal(got, probe_ref.triad_ref(a, b, s))
+
+
+def test_staged_triad_refuses_a_tile_over_the_limit_and_recovers():
+    dev = _card()
+    a = _randn(dev, (1000, 128), 25)
+    s = torch.tensor([2.0], device=dev)
+    limit = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
+    n0 = _build.LAUNCHES["triad_staged"]
+    with pytest.raises(_build.CudaError) as err:
+        probe_kernel.triad(a, a, s, block=limit // 512 + 2)
+    assert err.value.code == _build.CUDA_ERROR_INVALID_VALUE
+    assert _build.LAUNCHES["triad_staged"] == n0
+    got = probe_kernel.triad(a, a, s, block=limit // 512)
+    torch.cuda.synchronize()
+    assert torch.equal(got, probe_ref.triad_ref(a, a, s))
+
+
+def test_probe_effective_vmem_finds_the_cards_optin_limit():
+    from repro_torch.tpuprobe import vmem_probe
+    _card()
+    _build.reset_counters()
+    eff = vmem_probe.probe_effective_vmem(lo=1024,
+                                          hi=vmem_probe.NOMINAL_SMEM,
+                                          align=1024)
+    assert eff == \
+        torch.cuda.get_device_properties(0).shared_memory_per_block_optin
+    assert _build.LAUNCHES["triad_staged"] > 0 and not _build.PLAIN_CALLS
 
 
 def _calibration_launches(mon):

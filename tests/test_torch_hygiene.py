@@ -31,6 +31,9 @@ def test_port_imports_neither_jax_nor_repro():
             "import repro_torch.launch.serve\n"
             "import repro_torch.launch.mesh, repro_torch.launch.train\n"
             "import repro_torch.tpuprobe.monitor\n"
+            "import repro_torch.tpuprobe.vmem_probe\n"
+            "import repro_torch.tpuprobe.ici_probe\n"
+            "import repro_torch.tpuprobe.pod_backend\n"
             "import repro_torch.distributed.rebalance\n"
             "import repro_torch.distributed.sharding\n"
             "import repro_torch.data.pipeline\n"
@@ -62,14 +65,17 @@ def test_public_surface_is_a_subset_of_the_jax_package():
 # the port's names beyond the JAX package's: the weight/cache/state
 # carriers, the plain versions of the SSD kernel's own function and of its
 # four stages, the plain emulation of the bf16 attention path and the
-# triad's device timing
+# triad's device timing and its refused tile, and the card's shared memory
+# beside the TPU's VMEM
 EXTRA = {"repro_torch.models.lm": {"params_from_numpy", "caches_from_numpy"},
          "repro_torch.kernels.ssd_scan.ref": {
              "ssd_scan_grid_ref", "ssd_chunk_cb", "ssd_chunk_states",
              "ssd_carry_states", "ssd_chunk_outputs", "ssd_scan_stages_ref"},
          "repro_torch.kernels.flash_attention.ref": {
              "attention_bf16_probs_ref"},
-         "repro_torch.kernels.cache_probe.kernel": {"triad_device_seconds"},
+         "repro_torch.kernels.cache_probe.kernel": {"triad_device_seconds",
+                                                    "TileError"},
+         "repro_torch.tpuprobe.vmem_probe": {"NOMINAL_SMEM"},
          "repro_torch.train.train_step": {"train_state_from_numpy"}}
 
 
@@ -82,6 +88,7 @@ EXTRA = {"repro_torch.models.lm": {"params_from_numpy", "caches_from_numpy"},
     "kernels.ssd_scan.ops",
     "kernels.cache_probe.ref", "kernels.cache_probe.kernel",
     "kernels.cache_probe.ops", "launch.mesh", "tpuprobe.monitor",
+    "tpuprobe.vmem_probe", "tpuprobe.ici_probe", "tpuprobe.pod_backend",
     "distributed.rebalance", "distributed.sharding", "data.pipeline",
     "optim.adamw", "optim.grad_compress", "checkpoint.ckpt",
     "train.train_step", "train.trainer", "launch.train"])

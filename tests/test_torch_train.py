@@ -47,7 +47,8 @@ from repro.train import train_step as jts
 from repro_torch import _build
 from repro_torch._tree import tree_flatten_with_path, tree_leaves, tree_map
 from repro_torch.checkpoint import ckpt
-from repro_torch.configs.base import ShapeSpec, get_config, reduced_config
+from repro_torch.configs.base import (ARCH_IDS, ShapeSpec, get_config,
+                                      reduced_config)
 from repro_torch.data import pipeline as data
 from repro_torch.distributed.rebalance import StragglerMitigator
 from repro_torch.models import attention, lm, mamba2
@@ -422,6 +423,86 @@ def test_train_state_from_numpy_keeps_every_leaf():
                                                        jstate.opt.mu),
                       (state.ef, jstate.ef)):
         _assert_trees_close(got, want, rtol=0, atol=0)
+
+
+# -- the abstract state ---------------------------------------------------------------------
+
+def _structure(flat):
+    """{path: (shape, dtype name)} of a flattened tree."""
+    return {k: (tuple(v.shape), str(v.dtype).replace("torch.", ""))
+            for k, v in flat}
+
+
+def _jax_structure(tree):
+    return _structure(
+        (tuple(str(getattr(k, "key", k)) for k in path), v)
+        for path, v in jax.tree_util.tree_flatten_with_path(tree)[0])
+
+
+def test_abstract_train_state_allocates_nothing(monkeypatch):
+    """Full-width qwen2-moe-a2.7b with compression: meta tensors only,
+    built without `lm.init_params` and without a generator, with the keys,
+    shapes and dtypes of the JAX `abstract_train_state` (``eval_shape``)."""
+    def refuse(*a, **kw):
+        raise AssertionError("the abstract state drew parameters")
+
+    class RefusedGenerator(torch.Generator):
+        """Still a type (torch's meta kernels test isinstance against
+        torch.Generator), but none can be made."""
+
+        def __new__(cls, *a, **kw):
+            raise AssertionError("the abstract state made a generator")
+
+    monkeypatch.setattr(lm, "init_params", refuse)
+    monkeypatch.setattr(torch, "Generator", RefusedGenerator)
+    cfg = get_config("qwen2_moe_a2p7b")
+    state = ts.abstract_train_state(cfg, ts.TrainHyper(compress_cross_pod=True),
+                                    device="cpu")
+    monkeypatch.undo()
+    leaves = tree_leaves(state)
+    assert leaves and all(t.device.type == "meta" for t in leaves)
+    assert sum(t.numel() for t in tree_leaves(state.params)) == \
+        15_146_977_280
+    want = jts.abstract_train_state(
+        jget_config("qwen2_moe_a2p7b"),
+        jts.TrainHyper(compress_cross_pod=True))
+    for got, ref in ((state.params, want.params), (state.opt.mu, want.opt.mu),
+                     (state.opt.nu, want.opt.nu), (state.ef, want.ef)):
+        assert _structure(tree_flatten_with_path(got)) == _jax_structure(ref)
+    assert (tuple(state.opt.step.shape), state.opt.step.dtype) == \
+        ((), torch.int32)
+    assert tuple(want.opt.step.shape) == () and \
+        str(want.opt.step.dtype) == "int32"
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_abstract_params_equal_jax_reduced(arch):
+    got = lm.abstract_params(reduced_config(get_config(arch)))
+    assert all(t.device.type == "meta" for t in tree_leaves(got))
+    assert _structure(tree_flatten_with_path(got)) == _jax_structure(
+        jlm.abstract_params(jreduced_config(jget_config(arch))))
+
+
+@pytest.mark.parametrize("arch,dtype", [("zamba2_2p7b", "float32"),
+                                        ("llama4_scout_17b_a16e",
+                                         "bfloat16")])
+def test_abstract_params_equal_jax_full_width(arch, dtype):
+    got = lm.abstract_params(get_config(arch), getattr(torch, dtype))
+    assert _structure(tree_flatten_with_path(got)) == _jax_structure(
+        jlm.abstract_params(jget_config(arch), getattr(jnp, dtype)))
+
+
+def test_abstract_optimizer_states_follow_the_params():
+    _, tcfg = _cfgs("qwen1p5_0p5b")
+    params = lm.init_params(tcfg, 0, torch.bfloat16, device="cpu")
+    opt = adamw.abstract_state(params)
+    ef = grad_compress.abstract_error_state(params)
+    for tree in (opt.mu, opt.nu, ef):
+        assert all(t.device.type == "meta" and t.dtype == torch.float32
+                   for t in tree_leaves(tree))
+        assert lm._map(lambda t: tuple(t.shape), tree) == \
+            lm._map(lambda t: tuple(t.shape), params)
+    assert opt.step.device.type == "meta" and opt.step.dtype == torch.int32
 
 
 # -- checkpoints -----------------------------------------------------------------------------

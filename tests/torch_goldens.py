@@ -24,6 +24,12 @@ but ``wall_s`` and ``guests_per_sec``.  The goldens:
                                1, 4 and 8 guests) and ``choose_shard`` (8,
                                64 and 256 guests) on every platform, under
                                the JAX cost constants
+  pod_loop                     the pod backend's closed loop:
+                               ``run_pod_loop("on")`` and ``("off")`` at
+                               seed 0, ``PodFleetSim(intervals=12,
+                               warmup=6).run()``, and the ``export()`` of
+                               ``PodSession.attach(SimPod().slice(),
+                               eager=True)``
 
 `tests/test_torch_fleet.py::test_goldens_are_current` (slow) reruns this
 script into a scratch directory and compares every file.
@@ -138,6 +144,17 @@ def golden_tune() -> dict:
     return out
 
 
+def golden_pod_loop() -> dict:
+    from repro.tpuprobe.pod_backend import (PodFleetSim, PodSession, SimPod,
+                                            run_pod_loop)
+    export = PodSession.attach(SimPod().slice(), eager=True).export()
+    return {"on": report_fields(run_pod_loop("on", seed=0)),
+            "off": report_fields(run_pod_loop("off", seed=0)),
+            "fleet_12_6": report_fields(PodFleetSim(intervals=12,
+                                                    warmup=6).run()),
+            "export": json.loads(json.dumps(export, sort_keys=True))}
+
+
 def goldens() -> dict:
     """name -> thunk writing that golden's content."""
     from repro.core.platforms import list_platforms
@@ -148,6 +165,7 @@ def goldens() -> dict:
     g["fleet_matrix"] = golden_fleet_matrix
     g["fleet_attack"] = golden_fleet_attack
     g["tune"] = golden_tune
+    g["pod_loop"] = golden_pod_loop
     return g
 
 
