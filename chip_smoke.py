@@ -36,7 +36,7 @@ Four phases, in order; any failure exits non-zero:
              48, 49 and 227 KiB over 10,007 rows, the 228 KiB tile
              refused with cudaErrorInvalidValue and a fitting tile equal
              after it;
-3. main    — six paths, each check with the launch counters set to 0
+3. main    — seven paths, each check with the launch counters set to 0
              just before it and read just after:
              (i) `run_cachex("skylake_sp")`: the report must equal
              tests/data/torch_golden_run_cachex_skylake_sp.json, the engine
@@ -82,7 +82,8 @@ Four phases, in order; any failure exits non-zero:
              after it, and no
              plain triad, tier 0 and an EWMA below 1.15 at every
              probe of the idle card, a plan every step, a 7.4 GB
-             checkpoint written and deleted; the monitor's slowdowns on
+             checkpoint written, restored by path (vii) and deleted; the
+             monitor's slowdowns on
              the idle card, while a second CUDA stream copies 1 GiB
              device to device in a loop (where a fresh monitor's first
              probe must warn of a contended nominal; the idle run must
@@ -127,6 +128,20 @@ Four phases, in order; any failure exits non-zero:
              `PodFleetSim(12, 6)` and a `PodSession` export through
              `CacheXSession.attach(backend="pod")` equal to
              tests/data/torch_golden_pod_loop.json;
+             (vii) the cost model and the mesh rules (no kernel, under 30
+             s): the card's total memory at most `launch.mesh.HBM_BYTES`;
+             `roofline.count_params` beside the parameters each model
+             phase built, the difference split into what the count leaves
+             out (hubert-xlarge's must be its unused w_gate and its
+             norms, 314,696,960); a model-FLOPs share
+             (`roofline.model_flops_per_token` x tokens, x 3 for a
+             training step, over the wall, over `PEAK_FLOPS_BF16` in bf16
+             or `ALU_OPS_PER_S` in f32) for every timed prefill and the
+             training step; and, inside phase (iii) before the checkpoint
+             is deleted, `elastic.restore_on_mesh` of it onto a 1 x 1
+             mesh on its own NCCL group of one rank, every leaf a DTensor
+             on the card whose `full_tensor()` equals the trained state
+             bit for bit, freed before phase (v);
 4. times   — times each kernel with CUDA events at the main path's shapes
              beside its plain version, its bound and the PyTorch library
              call where one exists (the engine also at the Table 1
@@ -170,11 +185,10 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 GOLDEN = ROOT / "tests" / "data" / "torch_golden_run_cachex_skylake_sp.json"
 MAIN_PATH_ENGINE_CALLS = 361      # 308 access_streams_batched + 53 access_stream
-# H100 SXM published peaks: HBM bytes/s, the 32-bit rate outside the tensor
-# cores (integer compares, f32 FMAs), and the dense bf16 tensor-core rate.
-HBM_BYTES_PER_S = 3.35e12
+# H100 SXM published peak of the 32-bit rate outside the tensor cores
+# (integer compares, f32 FMAs); the HBM rate and the dense bf16 tensor-core
+# rate are the port's (`launch.mesh.HBM_BW`, `PEAK_FLOPS_BF16`).
 ALU_OPS_PER_S = 67e12
-BF16_FLOPS_PER_S = 989e12
 
 # Kernel vs plain version, float kernels: tests/test_kernels.py:15's
 # tolerances (f32 2e-5, bf16 2e-2).  Both sides compute in full f32 (no
@@ -941,8 +955,22 @@ def fma_gap(lib, got, prod) -> float:
     return float(((lib - got).abs() / bound_).max()) if got.numel() else 0.0
 
 
+def hbm_bw() -> float:
+    """The card's HBM bytes/s (`launch.mesh.HBM_BW`)."""
+    from repro_torch.launch.mesh import HBM_BW
+    return HBM_BW
+
+
+def peak_flops(dtype: str) -> float:
+    """The card's peak for arithmetic in ``dtype``: "bfloat16" the dense
+    tensor-core rate (`launch.mesh.PEAK_FLOPS_BF16`); anything else f32
+    outside the tensor cores (`ALU_OPS_PER_S`: TF32 is off)."""
+    from repro_torch.launch.mesh import PEAK_FLOPS_BF16
+    return PEAK_FLOPS_BF16 if dtype == "bfloat16" else ALU_OPS_PER_S
+
+
 def bound(nbytes: float, ops: float):
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_bytes = nbytes / hbm_bw() * 1e3
     t_ops = ops / ALU_OPS_PER_S * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
 
@@ -1890,16 +1918,6 @@ MONITOR_PROBES = 10
 CONTENTION_COPIES = 1000
 
 
-def matmul_params(cfg):
-    """(layer weights that multiply activations: q, k, v, o and the three
-    MLP matrices of every layer; the unembedding)."""
-    d = cfg.d_model
-    hq, hkv = cfg.n_heads_padded * cfg.head_dim, \
-        cfg.n_kv_heads_eff * cfg.head_dim
-    layer = 2 * d * hq + 2 * d * hkv + 3 * d * cfg.d_ff
-    return layer * cfg.n_layers, d * cfg.vocab_padded
-
-
 def _profile_step(smoke, step_fn, state, batch, step_s):
     """torch.profiler (device activity only) over one train step: kernels
     and device-busy time, against the median wall of the unprofiled steps
@@ -2085,11 +2103,19 @@ def train_main_path(smoke, card):
         on_disk = sum(f.stat().st_size for f in
                       Path(ckpt_dir, f"step_{TRAIN_STEPS:08d}").iterdir())
 
+        res["n_params_built"] = sum(t.numel() for t in
+                                    tree_leaves(last["state"].params))
+        # path (vii): the checkpoint restored onto a 1 x 1 mesh before it
+        # is deleted, against the state it holds
+        res["restore"] = elastic_restore(smoke, card, ckpt_dir, TRAIN_STEPS,
+                                         cfg, hyper, last["state"])
+
         walls = [r["wall_s"] for r in log]
         step_s = float(np.median(walls[1:]))
         tokens = TRAIN_BATCH * TRAIN_SEQ
-        p_layers, p_head = matmul_params(cfg)
-        flops = 6 * (p_layers + p_head) * tokens + 2 * p_layers * tokens
+        share = model_flops_share(cfg, tokens, step_s, "bfloat16",
+                                  train=True)
+        flops = share["model_flops"]
         samples = [h[0] for h in monitor.history]
         probe_dt = [nb / x.effective_bw for nb, x in zip(probe_bytes, samples)]
         res["run"] = {
@@ -2097,9 +2123,7 @@ def train_main_path(smoke, card):
             [r["grad_norm"] for r in log], "lr": [r["lr"] for r in log],
             "wall_s": walls, "median_step_s": step_s,
             "tokens_per_s": tokens / step_s,
-            "model_flops_per_step": flops,
-            "model_tflops_per_s": flops / step_s / 1e12,
-            "bf16_peak_share": flops / step_s / BF16_FLOPS_PER_S,
+            "model_flops_share": share,
             "peak_memory_bytes": peak,
             "memory_allocated_before_bytes": base, "launches": launches,
             "plain_calls": plain, "probes": probes,
@@ -2140,11 +2164,10 @@ def train_main_path(smoke, card):
     print(f"train: median step {step_s * 1e3:.1f} ms (steps "
           f"{np.round(np.array(walls) * 1e3, 1).tolist()} ms), "
           f"{tokens / step_s:,.0f} tokens/s, model "
-          f"{flops / step_s / 1e12:.1f} TFLOP/s = "
-          f"{100 * flops / step_s / BF16_FLOPS_PER_S:.2f}% of the bf16 dense "
-          f"peak ({flops / 1e12:.2f} TFLOP a step: 6 x "
-          f"{(p_layers + p_head) / 1e6:.1f} M matmul weights x {tokens} "
-          f"tokens + the remat forward of {p_layers / 1e6:.1f} M); peak "
+          f"{share['tflop_per_s']:.2f} TFLOP/s = "
+          f"{100 * share['share']:.3f}% of the bf16 dense peak "
+          f"({flops / 1e12:.3f} TFLOP a step: 3 x "
+          f"roofline.model_flops_per_token x {tokens} tokens); peak "
           f"memory {peak / 2**30:.2f} GiB ({base / 2**30:.2f} GiB allocated "
           f"before the run)")
     print(f"train: monitor probe {np.round(np.array(probe_s) * 1e3, 3).tolist()}"
@@ -2215,6 +2238,224 @@ def train_main_path(smoke, card):
           f"{run_s:.1f}, profile {pr['profile_s']:.1f}, restart "
           f"{res['restart']['s']:.1f}, accumulation "
           f"{res['accumulation']['s']:.1f}")
+    return res
+
+
+# -- the cost model and the mesh rules (phase 3 (vii)) -------------------------------
+
+# What `roofline.count_params` leaves out of the parameters `lm.init_params`
+# builds, by leaf path (first match): the norms, the attention and conv
+# biases, the SSM's per-head vectors, the MoE's shared-expert gate, the
+# vlm's patch projection and the encoder's `mlp/w_gate`, built by the
+# shared layer initializer and never read (its MLP is GELU over two
+# matrices, src/repro/models/layers.py:78-83)
+UNCOUNTED = (("norms", r"norm", None),
+             ("biases", r"attn/b[qkv]$|ssm/conv_b$", None),
+             ("ssm head vectors", r"ssm/(A_log|D|dt_bias)$", None),
+             ("shared-expert gate", r"moe/shared_gate$", "moe"),
+             ("patch projection", r"embed/proj$", "vlm"),
+             ("unused w_gate", r"mlp/w_gate$", "encoder"))
+# hubert-xlarge: 48 x 1280 x 5120 of w_gate and 124,160 of norms
+HUBERT_GAP = 314_696_960
+PATH_VII_MAX_S = 30.0
+
+
+def model_flops_share(cfg, tokens: int, wall_s: float, dtype: str,
+                      train: bool = False) -> dict:
+    """The model FLOPs of a timed forward over ``tokens`` tokens
+    (`roofline.model_flops_per_token`, twice the parameters a token
+    touches), x 3 for a training step (forward and backward), over the
+    wall, over the card's peak in ``dtype`` (`peak_flops`)."""
+    from repro_torch.launch import roofline
+    flops = roofline.model_flops_per_token(cfg) * tokens * (3 if train else 1)
+    peak = peak_flops(dtype)
+    return {"model_flops": flops, "wall_s": wall_s, "dtype": dtype,
+            "peak_flops": peak, "tflop_per_s": flops / wall_s / 1e12,
+            "share": flops / wall_s / peak}
+
+
+def param_count_gap(cfg, n_built: int) -> dict:
+    """`roofline.count_params(cfg)` beside the numel of the parameters a
+    phase built (equal to `lm.abstract_params`' numel, checked), the
+    difference split by `UNCOUNTED`; ``rest`` is what no entry names."""
+    import re
+    from repro_torch._tree import tree_flatten_with_path
+    from repro_torch.distributed.sharding import path_str
+    from repro_torch.launch import roofline
+    from repro_torch.models import lm
+    leaves = {path_str(p): t.numel()
+              for p, t in tree_flatten_with_path(lm.abstract_params(cfg))}
+    if sum(leaves.values()) != n_built:
+        raise AssertionError(f"cost: {cfg.name} built {n_built:,} "
+                             f"parameters, its abstract tree has "
+                             f"{sum(leaves.values()):,}")
+    counted = int(roofline.count_params(cfg))
+    parts = {}
+    for path, n in leaves.items():
+        for name, pat, family in UNCOUNTED:
+            if family in (None, cfg.family) and re.search(pat, path):
+                parts[name] = parts.get(name, 0) + n
+                break
+    gap = n_built - counted
+    return {"config": cfg.name, "built": n_built, "count_params": counted,
+            "gap": gap, "parts": parts, "rest": gap - sum(parts.values())}
+
+
+def elastic_restore(smoke, card, ckpt_dir, step, cfg, hyper, trained):
+    """Path (vii)'s restore: `elastic.restore_on_mesh` of phase (iii)'s
+    checkpoint onto a 1 x 1 mesh over an NCCL group of one rank, opened
+    and destroyed here.  Every leaf must be a DTensor on the card whose
+    `full_tensor()` equals ``trained``'s leaf bit for bit; the restored
+    state is freed before this returns."""
+    torch = smoke.torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+    from repro_torch._tree import tree_flatten_with_path
+    from repro_torch.distributed import elastic
+    from repro_torch.distributed.sharding import path_str
+    from repro_torch.launch.mesh import make_host_mesh
+    want = {path_str(p): t for p, t in tree_flatten_with_path(trained)}
+
+    def as_bytes(t):
+        return t.detach().reshape(-1).view(torch.uint8)
+
+    def check(state, mesh):
+        """(leaves not equal as DTensors on the card, bytes, leaves with a
+        Shard placement)."""
+        got = {path_str(p): t for p, t in tree_flatten_with_path(state)}
+        bad = sorted(set(want) ^ set(got))
+        nbytes = sharded = 0
+        for path in set(want) & set(got):
+            x = got[path]
+            if not (isinstance(x, DTensor) and x.device_mesh is mesh
+                    and x.to_local().device.type == "cuda"):
+                bad.append(path)
+                continue
+            full = x.full_tensor()
+            if full.dtype != want[path].dtype \
+                    or full.shape != want[path].shape \
+                    or not torch.equal(as_bytes(full), as_bytes(want[path])):
+                bad.append(path)
+            nbytes += full.numel() * full.element_size()
+            sharded += any(p.is_shard() for p in x.placements)
+        return bad, nbytes, sharded
+
+    before = torch.cuda.memory_allocated()
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{_free_port()}", world_size=1, rank=0)
+    try:
+        mesh = make_host_mesh()
+        smoke.sync()
+        t0 = time.perf_counter()
+        state = elastic.restore_on_mesh(ckpt_dir, step, cfg, hyper, mesh)
+        smoke.sync()
+        restore_s = time.perf_counter() - t0
+        bad, nbytes, sharded = check(state, mesh)
+        del state
+        mesh_shape = list(mesh.shape)
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    left = torch.cuda.memory_allocated() - before
+    if bad:
+        raise AssertionError(f"restore: leaves missing, extra or not equal "
+                             f"to the trained state as DTensors on the "
+                             f"card: {bad}")
+    res = {"s": restore_s, "bytes": nbytes, "leaves": len(want),
+           "sharded_leaves": sharded, "mesh": mesh_shape,
+           "left_allocated_bytes": left, "card": card}
+    print(f"restore: elastic.restore_on_mesh({cfg.name}, step {step}) onto "
+          f"the {tuple(mesh_shape)} (data, model) mesh of one NCCL rank: "
+          f"{len(want)} leaves ({sharded} with a Shard placement), "
+          f"{nbytes:,} bytes, every full_tensor() equal to the trained "
+          f"state bit for bit; restore {restore_s:.2f} s, {left:,} bytes "
+          f"left allocated after it on {card}")
+    return res
+
+
+def cost_model_path(smoke, card, out):
+    """Phase 3 (vii): the card's memory against `launch.mesh.HBM_BYTES`,
+    `roofline.count_params` beside the parameters each model phase built
+    (hubert-xlarge's gap must be its unused w_gate and its norms), and a
+    model-FLOPs share for every timed prefill and training step; the
+    restore (phase (iii)'s checkpoint on a 1 x 1 mesh) ran inside phase
+    (iii) and is reported here."""
+    torch = smoke.torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.mesh import HBM_BYTES
+    t0 = time.perf_counter()
+    total = torch.cuda.get_device_properties(0).total_memory
+    print(f"cost: HBM_BYTES {HBM_BYTES:,} bytes, the card's total_memory "
+          f"{total:,} bytes ({total / HBM_BYTES:.4f} of it) on {card}")
+    if total > HBM_BYTES:
+        raise AssertionError(f"cost: total_memory {total} > HBM_BYTES "
+                             f"{HBM_BYTES}")
+    serve, train, fam = out["serve"], out["train"], out["families"]
+    built = {SERVE_ARCH: serve["n_params"],
+             TRAIN_ARCH: train["n_params_built"]}
+    for arch in (MOE_ARCH, VLM_ARCH, ENC_ARCH):
+        built[arch] = fam[get_config(arch).name]["n_params"]
+    gaps = {}
+    for arch, n in built.items():
+        g = gaps[arch] = param_count_gap(get_config(arch), n)
+        print(f"cost: {g['config']}: count_params {g['count_params']:,}, "
+              f"built {n:,}, difference {g['gap']:,} = "
+              + " + ".join(f"{k} {v:,}" for k, v in g["parts"].items())
+              + f" (rest {g['rest']:,})")
+    hub = gaps[ENC_ARCH]
+    enc = get_config(ENC_ARCH)
+    want_w_gate = enc.n_layers * enc.d_model * enc.d_ff
+    if hub["gap"] != HUBERT_GAP or hub["rest"] \
+            or hub["parts"].get("unused w_gate") != want_w_gate:
+        raise AssertionError(f"cost: hubert-xlarge's count gap {hub}, "
+                             f"expected {HUBERT_GAP:,} with the unused "
+                             f"w_gate {want_w_gate:,}")
+    tokens = PREFILL_B * PREFILL_S
+    timed = []
+    for dtype in ("float32", "bfloat16"):
+        rec = serve[f"prefill_{dtype}"]
+        timed.append((SERVE_ARCH, f"prefill {dtype} (first)", dtype,
+                      rec["wall_s"]))
+        timed.append((SERVE_ARCH, f"prefill {dtype} (again)", dtype,
+                      rec["warm_wall_s"]))
+    for arch in (MOE_ARCH, VLM_ARCH, ENC_ARCH):
+        entry = fam[get_config(arch).name]
+        for dtype in ("float32", "bfloat16"):
+            timed.append((arch, f"prefill {dtype}", dtype,
+                          entry["prefill"][dtype]["wall_s"]))
+        if "sorted_f32" in entry:
+            timed.append((arch, "prefill float32 sorted", "float32",
+                          entry["sorted_f32"]["wall_s"]))
+        if "loss" in entry:
+            for dtype in ("float32", "bfloat16"):
+                timed.append((arch, f"loss forward {dtype}", dtype,
+                              entry["loss"][dtype]["wall_s"]))
+    shares = []
+    for arch, what, dtype, wall in timed:
+        sh = model_flops_share(get_config(arch), tokens, wall, dtype)
+        shares.append({"config": get_config(arch).name, "what": what, **sh})
+    step = train["run"]["model_flops_share"]
+    shares.append({"config": get_config(TRAIN_ARCH).name,
+                   "what": f"train step bf16 ({TRAIN_BATCH} x {TRAIN_SEQ}, "
+                           f"median)", **step})
+    for sh in shares:
+        print(f"cost: {sh['config']} {sh['what']}: {sh['wall_s']:.4f} s, "
+              f"{sh['model_flops'] / 1e12:.3f} model TFLOP, "
+              f"{sh['tflop_per_s']:.2f} TFLOP/s = {100 * sh['share']:.3f}% "
+              f"of the {sh['dtype']} peak {sh['peak_flops'] / 1e12:.0f} "
+              f"TFLOP/s on {card}")
+    restore = train["restore"]
+    s = time.perf_counter() - t0
+    res = {"hbm_bytes": HBM_BYTES, "total_memory": total,
+           "count_gaps": gaps, "model_flops_shares": shares,
+           "restore": restore, "s": s, "path_s": s + restore["s"],
+           "card": card}
+    print(f"cost: path (vii) {res['path_s']:.2f} s (restore "
+          f"{restore['s']:.2f} s, the rest {s:.2f} s; at most "
+          f"{PATH_VII_MAX_S:.0f} s) on {card}")
+    if res["path_s"] > PATH_VII_MAX_S:
+        raise AssertionError(f"cost: path (vii) took {res['path_s']:.1f} s")
     return res
 
 
@@ -2535,8 +2776,8 @@ def lm_kernel_rows(smoke, card, launches):
         # causal: q_pos >= k_pos pairs, 2*D flops each for QK^T and for PV
         flops = 4 * B * H * D * (Sq * (Sq + 1) // 2)
         nbytes = 4 * B * H * Sq * D * q.element_size()
-        peak = ALU_OPS_PER_S if dtype == torch.float32 else BF16_FLOPS_PER_S
-        t_ops, t_bytes = flops / peak * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / peak_flops(str(dtype)[6:]) * 1e3
+        t_bytes = nbytes / hbm_bw() * 1e3
         shapes.append({
             "dtype": str(dtype)[6:], "shape": [B, H, Sq, D], "causal": True,
             "ms": smoke.device_ms(lambda: fa_kernel.flash_attention_bhsd(
@@ -2578,8 +2819,7 @@ def lm_kernel_rows(smoke, card, launches):
              + b * h * nc * (2 * tri * p + 4 * L * p * n + p * n))
     nbytes = 4 * (2 * x.numel() + 2 * dt.numel() + 2 * Bm.numel()
                   + b * h * p * n)
-    t_ops, t_bytes = flops / ALU_OPS_PER_S * 1e3, \
-        nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops, t_bytes = flops / ALU_OPS_PER_S * 1e3, nbytes / hbm_bw() * 1e3
     stages, lost, profiles = ssd_stage_us(
         smoke, lambda: ssd_kernel.ssd_scan_grid(x, dt, dA, Bm, Cm))
     rows.append({
@@ -2634,9 +2874,8 @@ def family_attention_rows(smoke, card, fam):
             pairs = S * (S + 1) // 2 if causal else S * S
             flops = 4 * B * H * D * pairs
             nbytes = 4 * B * H * S * D * q.element_size()
-            peak = ALU_OPS_PER_S if name == "float32" else BF16_FLOPS_PER_S
-            t_ops = flops / peak * 1e3
-            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            t_ops = flops / peak_flops(name) * 1e3
+            t_bytes = nbytes / hbm_bw() * 1e3
             shapes.append({
                 "dtype": name, "shape": [B, H, S, D], "causal": causal,
                 "max_abs_err": err,
@@ -3390,6 +3629,10 @@ def main() -> int:
     pod = pod_main_path(smoke, card)
     out["phases"]["pod_s"] = pod["s"]
     out["pod"] = pod
+
+    cost = cost_model_path(smoke, card, out)
+    out["phases"]["cost_s"] = cost["path_s"]
+    out["cost"] = cost
 
     # -- 4. times -----------------------------------------------------------------
     # "ms" is device time per launch (Smoke.device_ms), "plain_ms" the

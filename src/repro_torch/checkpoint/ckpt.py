@@ -15,8 +15,9 @@ writes restores here and the other way round.
   * **async**: `AsyncCheckpointer.save_async` copies the tensors to the
     host, then writes on a background thread while training continues;
     `wait` joins it and raises what the write raised,
-  * `restore` places every leaf on one ``device`` (the JAX function's
-    target shardings wait for the multi-card slice),
+  * `restore` places every leaf on one ``device``;
+    `distributed.elastic.restore_on_mesh` places them on a mesh as
+    DTensors (the JAX function's target shardings),
   * retention of the newest `keep` checkpoints.
 """
 

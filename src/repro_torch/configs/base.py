@@ -4,19 +4,22 @@
 Every architecture is a frozen `ArchConfig`.  TP-divisibility padding is
 kept exactly as in the JAX package (`n_heads_padded`, `n_kv_heads_eff`,
 `vocab_padded`): parameters carried across from the JAX package only line
-up when both pad the same way.  `input_specs` (the dry-run's abstract
-inputs) is not ported: the port has no dry-run (ROADMAP.md).
+up when both pad the same way.  `input_specs` gives a step's abstract
+inputs as "meta" tensors (the JAX function's ``ShapeDtypeStruct``s): the
+same keys, shapes and dtypes, no allocation.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import importlib
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
+
+import torch
 
 __all__ = ["TP_DEGREE", "MoeParams", "SsmParams", "ArchConfig", "ShapeSpec",
-           "SHAPES", "ARCH_IDS", "ALIASES", "get_config",
-           "reduced_config"]
+           "SHAPES", "SHAPE_BY_NAME", "ARCH_IDS", "ALIASES", "get_config",
+           "reduced_config", "input_specs"]
 
 TP_DEGREE = 16  # the production mesh's "model" axis
 
@@ -101,10 +104,34 @@ class ArchConfig:
         return self.n_kv_heads
 
     @property
+    def kv_sharded(self) -> bool:
+        """Whether the KV heads shard over the model axis (at least
+        `TP_DEGREE` of them, not forced to replicate)."""
+        return bool(self.n_heads) and self.n_kv_heads >= TP_DEGREE \
+            and not self.force_kv_replicate
+
+    @property
+    def sharding_overrides(self) -> Dict[str, Optional[str]]:
+        """Arch-dependent logical-axis mapping tweaks: with KV heads too
+        few to shard, the KV projections replicate and the KV cache shards
+        along its sequence instead."""
+        out: Dict[str, Optional[str]] = {}
+        if self.n_heads and not self.kv_sharded:
+            out["kv_qkv"] = None        # replicate kv projections
+            out["kv_heads"] = None
+            out["cache_seq"] = "model"  # shard the KV cache along sequence
+        return out
+
+    @property
     def supports_decode(self) -> bool:
         """Whether the family decodes token by token (the encoder does
         not)."""
         return self.family != "encoder"
+
+    @property
+    def subquadratic(self) -> bool:
+        """May run long_500k (SSM / hybrid); pure full-attention archs skip."""
+        return self.family in ("ssm", "hybrid")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -121,6 +148,8 @@ SHAPES: Tuple[ShapeSpec, ...] = (
     ShapeSpec("decode_32k", 32768, 128, "decode"),
     ShapeSpec("long_500k", 524288, 1, "decode"),
 )
+
+SHAPE_BY_NAME = {s.name: s for s in SHAPES}
 
 ARCH_IDS = (
     "zamba2_2p7b", "qwen2p5_14b", "yi_6b", "qwen1p5_4b", "qwen1p5_0p5b",
@@ -176,3 +205,37 @@ def reduced_config(cfg: ArchConfig, n_layers: int = 2, d_model: int = 128,
         kw["d_input_stub"] = 64
         kw["stub_seq"] = min(cfg.stub_seq, 16) if cfg.stub_seq else 0
     return ArchConfig(**kw)
+
+
+def input_specs(cfg: ArchConfig, shape: ShapeSpec,
+                max_decode_len: Optional[int] = None) -> Dict:
+    """Every model input of a step as a "meta" tensor (no allocation):
+    int32 tokens and targets (the vlm's text rows only, ``S - stub_seq``;
+    none for the encoder, whose input is bf16 ``frames``), the vlm's bf16
+    ``patch_embeds``, no targets for a prefill; a decode step's one token
+    a row and its 0-d int32 ``pos``.  ``max_decode_len`` is taken as the
+    JAX function takes it, and changes nothing."""
+    B, S = shape.global_batch, shape.seq_len
+
+    def meta(size, dtype):
+        return torch.empty(size, dtype=dtype, device="meta")
+
+    def tok(b, s):
+        return meta((b, s), torch.int32)
+
+    if shape.kind in ("train", "prefill"):
+        spec = {"tokens": tok(B, S), "targets": tok(B, S)}
+        if cfg.family == "vlm":
+            s_img = cfg.stub_seq
+            spec["tokens"] = tok(B, S - s_img)
+            spec["targets"] = tok(B, S - s_img)
+            spec["patch_embeds"] = meta((B, s_img, cfg.d_input_stub),
+                                        torch.bfloat16)
+        elif cfg.family == "encoder":
+            spec["frames"] = meta((B, S, cfg.d_input_stub), torch.bfloat16)
+            del spec["tokens"]
+        if shape.kind == "prefill":
+            spec.pop("targets", None)
+        return spec
+    # decode: one new token against a cache of length seq_len
+    return {"tokens": tok(B, 1), "pos": meta((), torch.int32)}

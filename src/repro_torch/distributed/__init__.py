@@ -1,3 +1,4 @@
-"""Contention-aware work placement (`rebalance`) and the leaf-name
-convention of checkpoints (`sharding.path_str`).  Meshes and shardings
-wait for the multi-card slice (ROADMAP.md)."""
+"""Contention-aware work placement (`rebalance`), the logical-axis
+sharding rules as DTensor placements with the leaf-name convention of
+checkpoints (`sharding`), and the elastic restore of a checkpoint onto a
+mesh (`elastic`)."""

@@ -1,0 +1,265 @@
+"""Roofline accounting: the analytic per-device cost model (the analytic
+half of `repro.launch.roofline`, line for line).
+
+Three terms per (arch x shape x mesh), in seconds:
+
+    compute    = FLOPs_per_device  / PEAK_FLOPS_BF16
+    memory     = HBM_bytes_per_device / HBM_BW
+    collective = collective_bytes_per_device / ICI_BW_PER_LINK
+
+with the card's constants (`launch.mesh`: an NVIDIA H100 SXM5), so the
+seconds differ from the JAX module's by the constants alone.
+
+  * The compute and memory terms come from an analytic model that mirrors
+    the program the production mesh runs (the same einsums including the
+    GShard dispatch, TP padding, KV replication, remat recompute,
+    microbatching).  Every number is a Python float or int computed in the
+    JAX module's order, so both packages give equal results.  On "meta"
+    tensors, `torch.utils.flop_counter.FlopCounterMode` over the port's
+    `lm.loss_fn` at depth 1 is the program's own count to hold it to
+    (tests/test_torch_roofline.py).
+
+  * MODEL_FLOPS = 6·N·D (dense) or 6·N_active·D (MoE); the ratio
+    MODEL_FLOPS / FLOPs exposes padding, dispatch-einsum and remat waste.
+
+The collective half of the JAX module parses the HLO text XLA compiles,
+which the port never produces; its counterpart, a count of the sharded
+torch step's collectives, comes with that step (ROADMAP.md).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional
+
+from repro_torch.configs.base import ArchConfig, ShapeSpec
+from repro_torch.launch.mesh import HBM_BW, ICI_BW_PER_LINK, PEAK_FLOPS_BF16
+
+__all__ = ["TP", "AnalyticCosts", "analytic_costs", "count_params",
+           "active_params", "model_flops_per_token", "cache_bytes",
+           "roofline_terms"]
+
+TP = 16  # "model" axis extent on the production mesh
+
+
+def _layer_fwd_flops_per_token(cfg: ArchConfig, S: int, local_S: int) -> float:
+    """Forward FLOPs per *token* per layer, per model-shard (x TP = global).
+
+    `S`: attention context length; `local_S`: tokens this device computes.
+    Mirrors the compiled einsums, including TP padding and KV replication.
+    """
+    D = cfg.d_model
+    fl = 0.0
+    if cfg.family in ("dense", "moe", "encoder", "vlm", "hybrid"):
+        Hp, dh = cfg.n_heads_padded, cfg.head_dim
+        Hkv = cfg.n_kv_heads_eff
+        q_cols = Hp * dh / TP
+        kv_cols = Hkv * dh / (TP if cfg.kv_sharded else 1)
+        fl += 2 * D * q_cols              # wq
+        fl += 2 * 2 * D * kv_cols         # wk, wv
+        fl += 2 * q_cols * D              # wo
+        # attention: scores + AV;  causal halves the window on average
+        causal_frac = 0.5 if cfg.causal else 1.0
+        fl += 2 * 2 * S * causal_frac * (Hp / TP) * dh
+    if cfg.family in ("dense", "encoder", "vlm", "hybrid"):
+        n_mats = 2 if cfg.family == "encoder" else 3   # gelu vs swiglu
+        fl += 2 * n_mats * D * (cfg.d_ff / TP)
+    if cfg.family == "moe":
+        m = cfg.moe
+        E = m.n_experts_padded
+        fl += 2 * D * E                              # router (replicated f32)
+        # expert FFN: k*cf capacity slots per token, experts sharded over TP
+        fl += 2 * 3 * D * m.top_k * m.capacity_factor * m.d_ff_expert / TP
+        if m.d_ff_shared:
+            fl += 2 * 3 * D * (m.d_ff_shared / TP)
+        # (GShard dispatch/combine einsums are O(S) per token and added at
+        #  sequence level by _moe_dispatch_flops_per_device)
+    if cfg.family in ("ssm", "hybrid") and cfg.ssm:
+        s = cfg.ssm
+        d_in = 2 * s.expand * D + 2 * s.d_state + (s.expand * D // s.head_dim)
+        h_loc = (s.expand * D // s.head_dim) / TP
+        p, n, L = s.head_dim, s.d_state, s.chunk
+        fl_ssm = 2 * D * (d_in / TP)                  # in_proj
+        fl_ssm += 2 * (s.expand * D / TP) * D         # out_proj
+        fl_ssm += 2 * s.d_conv * (s.expand * D + 2 * n)  # conv (cheap)
+        # SSD per token: cb (2*L*n) + att*x (2*L*h*p) + states (2*h*p*n/L ...)
+        fl_ssm += 2 * L * n                           # cb einsum (B/C shared)
+        fl_ssm += 2 * L * h_loc * p                   # intra-chunk AV
+        fl_ssm += 2 * 2 * h_loc * p * n               # states + y_inter
+        fl = fl + fl_ssm if cfg.family == "ssm" else fl_ssm + _hybrid_attn_frac(cfg) * fl
+    return fl
+
+
+def _hybrid_attn_frac(cfg: ArchConfig) -> float:
+    """Hybrid: the shared attn+MLP block runs once per `hybrid_every` ssm
+    layers; amortize its flops across the stack."""
+    return 1.0 / cfg.hybrid_every if cfg.hybrid_every else 0.0
+
+
+def _moe_dispatch_flops_per_device(cfg: ArchConfig, tokens_local: float,
+                                   S_mb: int) -> float:
+    """GShard dense dispatch/combine einsum flops (per device, per layer):
+    dispatch bsd,bsec->becd + combine becd,bsec->bsd = 2 * 2*T*E*C*D with
+    E*C = k*cf*group (group = routing group size, default the full row)."""
+    m = cfg.moe
+    group = m.group_size if m.group_size else S_mb
+    ec = m.top_k * m.capacity_factor * min(group, S_mb)
+    return 2 * 2 * tokens_local * ec * cfg.d_model
+
+
+@dataclasses.dataclass
+class AnalyticCosts:
+    flops_per_device: float
+    hbm_bytes_per_device: float
+    model_flops_global: float
+    params_global: float
+    notes: str = ""
+
+
+def analytic_costs(cfg: ArchConfig, shape: ShapeSpec, n_chips: int,
+                   microbatches: int = 1, remat: str = "full",
+                   dp_shards: Optional[int] = None) -> AnalyticCosts:
+    """Per-device per-step FLOPs and HBM-byte estimates."""
+    dp = dp_shards or (n_chips // TP)
+    B, S = shape.global_batch, shape.seq_len
+    L_layers = cfg.n_layers
+    D = cfg.d_model
+
+    params = count_params(cfg)
+    if shape.kind == "decode":
+        tokens_local = max(1.0, B / dp) * 1          # one token per seq
+        ctx = S
+        fwd = tokens_local * L_layers * _layer_fwd_flops_per_token(
+            cfg, ctx, 1)
+        if cfg.family == "moe":
+            fwd += L_layers * _moe_dispatch_flops_per_device(cfg, tokens_local, 1)
+        fwd += tokens_local * 2 * D * (cfg.vocab_padded / TP)   # unembed
+        flops = fwd
+        # decode memory: params (bf16) + KV/state cache read per token
+        pbytes = params * 2 / n_chips
+        cache = cache_bytes(cfg, B, S) / n_chips
+        hbm = pbytes + cache
+        mf = model_flops_per_token(cfg) * B
+    else:
+        tokens_local = B * S / dp
+        S_mb = S  # microbatching splits batch, not seq
+        fwd = tokens_local * L_layers * _layer_fwd_flops_per_token(cfg, S, S)
+        if cfg.family == "moe":
+            fwd += L_layers * _moe_dispatch_flops_per_device(
+                cfg, tokens_local / microbatches, S_mb) * microbatches
+        fwd += tokens_local * 2 * D * (cfg.vocab_padded / TP)
+        if shape.kind == "train":
+            mult = 3.0 + (1.0 if remat == "full" else 0.0)  # fwd+bwd(2)+remat
+            flops = fwd * mult
+        else:
+            flops = fwd
+        # memory: params read ~3x (fwd, bwd) + opt update (f32 read+write) +
+        # activations written+read once per layer boundary
+        pshard = params / n_chips
+        act = tokens_local * D * L_layers * 2 * 2     # bf16, write+read
+        if shape.kind == "train":
+            hbm = pshard * (2 * 3 + 4 * 3) + act * (2 if remat == "full" else 1)
+        else:
+            hbm = pshard * 2 + act
+        mf = model_flops_per_token(cfg) * B * S * \
+            (3.0 if shape.kind == "train" else 1.0)
+
+    return AnalyticCosts(flops_per_device=flops, hbm_bytes_per_device=hbm,
+                         model_flops_global=mf, params_global=params)
+
+
+def count_params(cfg: ArchConfig, padded: bool = True) -> float:
+    """padded=True mirrors the compiled program (TP head/vocab/expert
+    padding); padded=False is the true architecture (MODEL_FLOPS basis)."""
+    D, L = cfg.d_model, cfg.n_layers
+    vocab = cfg.vocab_padded if padded else cfg.vocab
+    p = vocab * D * 2  # embed + unembed
+    if cfg.n_heads:
+        Hq = cfg.n_heads_padded if padded else cfg.n_heads
+        Hkv = cfg.n_kv_heads_eff if padded else cfg.n_kv_heads
+        dh = cfg.head_dim
+        attn = D * Hq * dh * 2 + D * Hkv * dh * 2
+    else:
+        attn = 0.0
+    per = 0.0
+    if cfg.family in ("dense", "moe", "encoder", "vlm"):
+        per += attn
+        if cfg.family == "moe":
+            m = cfg.moe
+            E = m.n_experts_padded if padded else m.n_experts
+            per += D * E                    # router
+            per += E * 3 * D * m.d_ff_expert
+            per += 3 * D * m.d_ff_shared
+        else:
+            n_mats = 2 if cfg.family == "encoder" else 3
+            per += n_mats * D * cfg.d_ff
+    if cfg.family in ("ssm", "hybrid"):
+        s = cfg.ssm
+        di = s.expand * D
+        d_in = 2 * di + 2 * s.d_state + di // s.head_dim
+        per += D * d_in + di * D + s.d_conv * (di + 2 * s.d_state)
+    p += per * L
+    if cfg.hybrid_every:
+        shared = attn + 3 * D * cfg.d_ff
+        p += shared * cfg.n_shared_blocks
+    return p
+
+
+def active_params(cfg: ArchConfig) -> float:
+    """True parameters touched per token (MoE: top_k experts + shared)."""
+    if cfg.family != "moe":
+        return count_params(cfg, padded=False)
+    m = cfg.moe
+    D, L = cfg.d_model, cfg.n_layers
+    p = cfg.vocab * D * 2
+    dh = cfg.head_dim
+    per = D * cfg.n_heads * dh * 2 + D * cfg.n_kv_heads * dh * 2
+    per += m.top_k * 3 * D * m.d_ff_expert + 3 * D * m.d_ff_shared
+    per += D * m.n_experts
+    return p + per * L
+
+
+def model_flops_per_token(cfg: ArchConfig) -> float:
+    """MODEL_FLOPS/token = 6*N (dense) or 6*N_active (MoE), forward+backward
+    counted by the caller via the x3 train multiplier (so this returns 2*N:
+    the forward matmul flops)."""
+    return 2.0 * active_params(cfg)
+
+
+def cache_bytes(cfg: ArchConfig, B: int, S: int, dtype_bytes: int = 2) -> float:
+    if cfg.family in ("dense", "moe", "vlm"):
+        return (cfg.n_layers * 2 * B * S * cfg.n_kv_heads_eff *
+                cfg.head_dim * dtype_bytes)
+    if cfg.family == "ssm":
+        s = cfg.ssm
+        h = s.expand * cfg.d_model // s.head_dim
+        return cfg.n_layers * B * h * s.head_dim * s.d_state * 4
+    if cfg.family == "hybrid":
+        s = cfg.ssm
+        h = s.expand * cfg.d_model // s.head_dim
+        ssm = cfg.n_layers * B * h * s.head_dim * s.d_state * 4
+        groups = cfg.n_layers // cfg.hybrid_every
+        attn = groups * 2 * B * S * cfg.n_kv_heads_eff * cfg.head_dim * \
+            dtype_bytes
+        return ssm + attn
+    return 0.0
+
+
+def roofline_terms(flops_dev: float, hbm_dev: float, coll_dev: float,
+                   model_flops_dev: Optional[float] = None) -> Dict:
+    compute_s = flops_dev / PEAK_FLOPS_BF16
+    memory_s = hbm_dev / HBM_BW
+    coll_s = coll_dev / ICI_BW_PER_LINK
+    terms = {"compute_s": compute_s, "memory_s": memory_s,
+             "collective_s": coll_s}
+    dom = max(terms, key=terms.get)
+    bound = max(terms.values())
+    terms["dominant"] = dom
+    terms["step_lower_bound_s"] = bound
+    # roofline fraction — USEFUL (model) flop-time over the step bound:
+    # 1.0 means every cycle of the bound does model math at peak; padding,
+    # dispatch einsums, remat and comm-boundness all pull it down.
+    useful = (model_flops_dev if model_flops_dev is not None else flops_dev)
+    terms["roofline_fraction"] = (useful / PEAK_FLOPS_BF16) / bound \
+        if bound > 0 else 0.0
+    return terms

@@ -9,28 +9,33 @@ run one after another and their f32 gradients are summed, then averaged,
 as the JAX `_accum_loop` scan does.  The step is functional like the JAX
 one: it returns a new state and leaves the given one as it was.
 
-The mesh half of the JAX module (`arch_rules`, `batch_specs`,
-`state_shardings`, the `jit_*` functions, the ``sequence_parallel`` knob)
-waits for the multi-card slice (ROADMAP.md).
+The rule functions of the JAX module's mesh half are here: `arch_rules`,
+`batch_specs` (specs as tuples, the contents of JAX's ``PartitionSpec``),
+`state_shardings` and `cache_shardings` (DTensor placement trees,
+`distributed.sharding`).  The steps that run on a mesh (`jit_train_step`,
+`jit_decode_step`, `jit_prefill`) and the ``sequence_parallel`` knob
+wait for the sharded-step slice (ROADMAP.md).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, NamedTuple, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 import repro_torch
-from repro_torch._tree import tree_leaves, tree_map, tree_unflatten_like
-from repro_torch.configs.base import ArchConfig
+from repro_torch._tree import (tree_leaves, tree_map, tree_map_with_path,
+                               tree_unflatten_like)
+from repro_torch.configs.base import ArchConfig, ShapeSpec
+from repro_torch.distributed import sharding as shd
 from repro_torch.models import lm
 from repro_torch.optim import adamw, grad_compress
 
-__all__ = ["TrainHyper", "TrainState", "make_train_state",
-           "abstract_train_state", "build_train_step",
-           "train_state_from_numpy"]
+__all__ = ["TrainHyper", "TrainState", "arch_rules", "batch_specs",
+           "state_shardings", "make_train_state", "abstract_train_state",
+           "build_train_step", "train_state_from_numpy", "cache_shardings"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,6 +56,64 @@ class TrainState(NamedTuple):
     params: Any
     opt: adamw.AdamWState
     ef: Any                        # error-feedback buffers (or None)
+
+
+def arch_rules(cfg: ArchConfig,
+               shape: Optional[ShapeSpec] = None,
+               mesh=None) -> Dict[str, Optional[object]]:
+    """`shd.DEFAULT_RULES` with the arch's overrides; given a shape and a
+    mesh whose batch dims do not divide its batch, the batch unsharded and
+    the KV cache sharded along its sequence over "data"."""
+    rules = dict(shd.DEFAULT_RULES)
+    rules.update(cfg.sharding_overrides)
+    if shape is not None and mesh is not None:
+        # batch too small for the data axes (long_500k: batch=1): leave the
+        # batch unsharded and shard the KV-cache/sequence over "data"
+        sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
+        dp = 1
+        bmap = rules.get("batch")
+        for ax in (bmap if isinstance(bmap, tuple) else (bmap,)):
+            if ax in sizes:
+                dp *= sizes[ax]
+        if shape.global_batch % max(dp, 1) != 0:
+            rules["batch"] = None
+            rules["cache_seq"] = "data"
+    return rules
+
+
+def batch_specs(cfg: ArchConfig, mesh, kind: str,
+                shape: Optional[ShapeSpec] = None) -> Dict[str, Tuple]:
+    """The spec of each input of a ``kind`` step ("train", "prefill",
+    "decode"): the batch dim over the batch rule's mesh dims."""
+    rules = arch_rules(cfg, shape, mesh)
+    bspec = shd.resolve(rules, mesh, "batch")
+    b = bspec[0] if len(bspec) else None
+    specs: Dict[str, Tuple] = {}
+    if cfg.family == "encoder":
+        specs["frames"] = (b, None, None)
+    else:
+        specs["tokens"] = (b, None)
+    if kind == "train":
+        specs["targets"] = (b, None)
+    if cfg.family == "vlm":
+        specs["patch_embeds"] = (b, None, None)
+    if kind == "decode":
+        specs = {"tokens": (b, None), "pos": ()}
+    return specs
+
+
+def state_shardings(cfg: ArchConfig, mesh, abstract_state: TrainState):
+    """The train state's placement tree: parameters, moments and error
+    buffers by their paths, the step replicated."""
+    rules = arch_rules(cfg)
+    pshard = shd.param_sharding(abstract_state.params, mesh, rules)
+    oshard = adamw.AdamWState(
+        step=shd.placements((), mesh),
+        mu=shd.param_sharding(abstract_state.opt.mu, mesh, rules),
+        nu=shd.param_sharding(abstract_state.opt.nu, mesh, rules))
+    efshard = (shd.param_sharding(abstract_state.ef, mesh, rules)
+               if abstract_state.ef is not None else None)
+    return TrainState(params=pshard, opt=oshard, ef=efshard)
 
 
 def make_train_state(cfg: ArchConfig, hyper: TrainHyper, gen,
@@ -165,3 +228,31 @@ def _accum_loop(loss_of, params, mbatch, zero):
         ms.append(m)
     metrics = {k: torch.stack([m[k] for m in ms]).mean() for k in ms[0]}
     return g_acc, metrics
+
+
+# -- serving ------------------------------------------------------------------------
+
+def cache_shardings(cfg: ArchConfig, mesh, caches, rules=None):
+    """The decode caches' placement tree (`lm.init_caches`' structure):
+    KV caches ``(L, B, S, Hkv, dh)``, conv states ``(L, B, K-1, C)`` and
+    SSM states ``(L, B, h, p, n)`` by their logical axes, anything else
+    replicated."""
+    rules = rules or arch_rules(cfg)
+
+    def named(logical, ndim):
+        spec = shd.resolve(rules, mesh, *logical[:ndim])
+        return shd.placements(spec, mesh)
+
+    def spec_for(path, x):
+        p = shd.path_str(path)
+        if "attn" in p:  # (L, B, S, Hkv, dh)
+            return named(("layers", "batch", "cache_seq", "kv_heads",
+                          "null"), x.ndim)
+        if "conv" in p:  # (L, B, K-1, C)
+            return named(("layers", "batch", "null", "mlp"), x.ndim)
+        if "ssm" in p:   # (L, B, h, p, n)
+            return named(("layers", "batch", "heads", "null", "null"),
+                         x.ndim)
+        return shd.placements((), mesh)
+
+    return tree_map_with_path(spec_for, caches)

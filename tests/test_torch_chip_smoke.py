@@ -1,11 +1,17 @@
 """`chip_smoke.py`'s readouts that need no card: the completeness check of
 the SSD stage readout (`stage_readout`, which `ssd_stage_us` applies to
-each torch.profiler record)."""
+each torch.profiler record), and path (vii)'s arithmetic: the card's
+peaks taken from the port (`launch.mesh`), the model-FLOPs share from
+`launch.roofline`, and the split of `count_params`' gap to the built
+parameters."""
 
 import importlib.util
 from pathlib import Path
 
 import pytest
+
+from repro_torch.configs.base import get_config
+from repro_torch.launch import mesh, roofline
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -52,3 +58,59 @@ def test_ssd_stage_readout_of_an_empty_profile_loses_all(smoke):
     stages, lost = smoke.stage_readout({})
     assert lost == list(smoke.SSD_STAGES)
     assert set(stages.values()) == {None}
+
+
+def test_path_vii_is_in_the_script(smoke):
+    """The cost model's path and its pieces are there; the hand count of
+    matmul weights and the script's own bf16 peak are gone."""
+    for name in ("cost_model_path", "elastic_restore", "model_flops_share",
+                 "param_count_gap", "peak_flops", "hbm_bw"):
+        assert callable(getattr(smoke, name)), name
+    for gone in ("matmul_params", "BF16_FLOPS_PER_S", "HBM_BYTES_PER_S"):
+        assert not hasattr(smoke, gone), gone
+    src = (ROOT / "chip_smoke.py").read_text()
+    assert "cost_model_path(smoke, card, out)" in src
+    assert "elastic_restore(smoke, card, ckpt_dir" in src
+
+
+def test_the_scripts_peaks_are_the_ports(smoke):
+    assert smoke.peak_flops("bfloat16") == mesh.PEAK_FLOPS_BF16 == 989e12
+    assert smoke.peak_flops("float32") == smoke.ALU_OPS_PER_S == 67e12
+    assert smoke.hbm_bw() == mesh.HBM_BW
+
+
+@pytest.mark.parametrize("dtype,train", [("bfloat16", True),
+                                         ("float32", False)])
+def test_model_flops_share_is_the_roofline_count(smoke, dtype, train):
+    cfg = get_config("qwen1p5_0p5b")
+    sh = smoke.model_flops_share(cfg, 16384, 2.5, dtype, train=train)
+    flops = roofline.model_flops_per_token(cfg) * 16384 * (3 if train else 1)
+    assert sh["model_flops"] == flops
+    assert sh["share"] == flops / 2.5 / smoke.peak_flops(dtype)
+
+
+# the models chip_smoke builds at full width, and the gap each leaves to
+# count_params, split (computed from the configs' arithmetic)
+GAPS = {"zamba2_2p7b": {"norms": 427_520, "biases": 283_392,
+                        "ssm head vectors": 12_960},
+        "qwen1p5_0p5b": {"norms": 50_176, "biases": 73_728},
+        "qwen2_moe_a2p7b": {"norms": 100_352, "biases": 147_456,
+                            "shared-expert gate": 49_152},
+        "pixtral_12b": {"norms": 414_720, "patch projection": 5_242_880},
+        "hubert_xlarge": {"norms": 124_160, "unused w_gate": 314_572_800}}
+
+
+@pytest.mark.parametrize("arch", sorted(GAPS))
+def test_param_count_gap_is_what_count_params_leaves_out(smoke, arch):
+    from repro_torch._tree import tree_leaves
+    from repro_torch.models import lm
+    cfg = get_config(arch)
+    built = sum(t.numel() for t in tree_leaves(lm.abstract_params(cfg)))
+    g = smoke.param_count_gap(cfg, built)
+    assert g["count_params"] == roofline.count_params(cfg)
+    assert g["parts"] == GAPS[arch] and g["rest"] == 0
+    assert g["gap"] == sum(GAPS[arch].values())
+    if arch == "hubert_xlarge":
+        assert g["gap"] == smoke.HUBERT_GAP == 48 * 1280 * 5120 + 124_160
+    with pytest.raises(AssertionError, match="built"):
+        smoke.param_count_gap(cfg, built + 1)

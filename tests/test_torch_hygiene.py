@@ -36,6 +36,8 @@ def test_port_imports_neither_jax_nor_repro():
             "import repro_torch.tpuprobe.pod_backend\n"
             "import repro_torch.distributed.rebalance\n"
             "import repro_torch.distributed.sharding\n"
+            "import repro_torch.distributed.elastic\n"
+            "import repro_torch.launch.roofline\n"
             "import repro_torch.data.pipeline\n"
             "import repro_torch.optim.adamw, repro_torch.optim.grad_compress\n"
             "import repro_torch.checkpoint.ckpt\n"
@@ -65,8 +67,9 @@ def test_public_surface_is_a_subset_of_the_jax_package():
 # the port's names beyond the JAX package's: the weight/cache/state
 # carriers, the plain versions of the SSD kernel's own function and of its
 # four stages, the plain emulation of the bf16 attention path and the
-# triad's device timing and its refused tile, and the card's shared memory
-# beside the TPU's VMEM
+# triad's device timing and its refused tile, the card's shared memory
+# beside the TPU's VMEM, and a spec's DTensor placements (JAX's
+# NamedSharding)
 EXTRA = {"repro_torch.models.lm": {"params_from_numpy", "caches_from_numpy"},
          "repro_torch.kernels.ssd_scan.ref": {
              "ssd_scan_grid_ref", "ssd_chunk_cb", "ssd_chunk_states",
@@ -76,6 +79,7 @@ EXTRA = {"repro_torch.models.lm": {"params_from_numpy", "caches_from_numpy"},
          "repro_torch.kernels.cache_probe.kernel": {"triad_device_seconds",
                                                     "TileError"},
          "repro_torch.tpuprobe.vmem_probe": {"NOMINAL_SMEM"},
+         "repro_torch.distributed.sharding": {"placements"},
          "repro_torch.train.train_step": {"train_state_from_numpy"}}
 
 
@@ -89,7 +93,8 @@ EXTRA = {"repro_torch.models.lm": {"params_from_numpy", "caches_from_numpy"},
     "kernels.cache_probe.ref", "kernels.cache_probe.kernel",
     "kernels.cache_probe.ops", "launch.mesh", "tpuprobe.monitor",
     "tpuprobe.vmem_probe", "tpuprobe.ici_probe", "tpuprobe.pod_backend",
-    "distributed.rebalance", "distributed.sharding", "data.pipeline",
+    "distributed.rebalance", "distributed.sharding", "distributed.elastic",
+    "launch.roofline", "data.pipeline",
     "optim.adamw", "optim.grad_compress", "checkpoint.ckpt",
     "train.train_step", "train.trainer", "launch.train"])
 def test_lm_modules_public_names_are_the_jax_modules(name):
