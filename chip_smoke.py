@@ -36,7 +36,7 @@ Four phases, in order; any failure exits non-zero:
              48, 49 and 227 KiB over 10,007 rows, the 228 KiB tile
              refused with cudaErrorInvalidValue and a fitting tile equal
              after it;
-3. main    — seven paths, each check with the launch counters set to 0
+3. main    — eight paths, each check with the launch counters set to 0
              just before it and read just after:
              (i) `run_cachex("skylake_sp")`: the report must equal
              tests/data/torch_golden_run_cachex_skylake_sp.json, the engine
@@ -142,6 +142,23 @@ Four phases, in order; any failure exits non-zero:
              mesh on its own NCCL group of one rank, every leaf a DTensor
              on the card whose `full_tensor()` equals the trained state
              bit for bit, freed before phase (v);
+             (viii) the sharded step (`train_step.jit_train_step`,
+             `jit_prefill`, `jit_decode_step` as DTensor programs) on its
+             own NCCL group of one rank with a 1 x 1 `make_host_mesh()`,
+             starting with at most 1 GiB allocated, each model freed
+             after it: qwen1.5-0.5b at full width and depth, 2 steps of 8
+             x 2048 tokens (2 microbatches, bf16, remat "full") without
+             and with ``sequence_parallel``, losses and grad norms within
+             rel 1e-5 of `build_train_step` without a mesh on the same
+             state and batches (bit-equality printed), every output leaf
+             a DTensor with `state_shardings`' placements; zamba2-2.7b at
+             full width and depth, `jit_prefill(impl="kernel")` of 2 x
+             2048 tokens in f32 with 9 `flash_attention` launches and 54
+             `ssd_scan` calls on each rank's block through `local_map`
+             and no plain call, logits within 1e-5 of `lm.prefill`, then
+             4 tokens of `jit_decode_step` within 1e-5 of
+             `lm.decode_step`; each step's wall beside the unsharded one
+             and its `roofline.count_collectives` (no byte on one rank);
 4. times   — times each kernel with CUDA events at the main path's shapes
              beside its plain version, its bound and the PyTorch library
              call where one exists (the engine also at the Table 1
@@ -2374,6 +2391,248 @@ def elastic_restore(smoke, card, ckpt_dir, step, cfg, hyper, trained):
     return res
 
 
+# -- path (viii): the sharded step on a 1 x 1 NCCL mesh ----------------------
+
+# What earlier phases may leave allocated when the path starts, as (iii)
+SHARDED_START_MAX_BYTES = 1 << 30
+SHARDED_TRAIN_STEPS, SHARDED_DECODE_STEPS = 2, 4
+# The DTensor program on one rank against the same computation without a
+# mesh: the same ops on the same blocks, so bit-equal is expected and
+# printed; held to the CPU tests' tolerances, rel 1e-5 on the metrics and
+# 1e-5 absolute plus 1e-5 relative on the logits.
+SHARDED_RTOL = 1e-5
+SHARDED_LOGIT_TOL = dict(rtol=1e-5, atol=1e-5)
+
+
+def _rel(a: float, b: float) -> float:
+    return abs(a - b) / max(abs(b), 1e-30)
+
+
+def _sharded_train(smoke, mesh, card):
+    """qwen1.5-0.5b at full width and depth: `SHARDED_TRAIN_STEPS` steps
+    of `jit_train_step` (under `count_collectives`) and of
+    `build_train_step` without a mesh from the same state on the same
+    batches, without and with ``sequence_parallel``."""
+    torch = smoke.torch
+    from torch.distributed.tensor import DTensor
+    from repro_torch._tree import tree_flatten_with_path
+    from repro_torch.configs.base import ShapeSpec, get_config
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.launch import roofline
+    from repro_torch.train import train_step as ts
+    cfg = get_config(TRAIN_ARCH)
+    shape = ShapeSpec("chip_smoke", TRAIN_SEQ, TRAIN_BATCH, "train")
+    state0 = ts.make_train_state(
+        cfg, ts.TrainHyper(), torch.Generator(device=smoke.dev).manual_seed(0),
+        smoke.dev)
+    batches = [{k: torch.as_tensor(v, device=smoke.dev) for k, v in
+                make_batch(DataConfig(seed=0), cfg, shape, i).items()}
+               for i in range(SHARDED_TRAIN_STEPS)]
+    res = {"config": cfg.name, "n_layers": cfg.n_layers,
+           "d_model": cfg.d_model, "vocab": cfg.vocab, "seq": TRAIN_SEQ,
+           "batch": TRAIN_BATCH, "microbatches": TRAIN_MICRO,
+           "compute_dtype": "bfloat16", "remat": "full", "card": card}
+    plain = None
+    for sp in (False, True):
+        hyper = ts.TrainHyper(microbatches=TRAIN_MICRO, remat="full",
+                              compute_dtype=torch.bfloat16,
+                              sequence_parallel=sp)
+        step, _, st_shard, _ = ts.jit_train_step(cfg, mesh, hyper, shape)
+        if plain is None:     # sequence_parallel changes only the mesh rules
+            plain_step = ts.build_train_step(cfg, hyper)
+            plain, s_pl = [], state0
+            for b in batches:
+                smoke.sync()
+                t0 = time.perf_counter()
+                s_pl, m = plain_step(s_pl, b)
+                smoke.sync()
+                plain.append((time.perf_counter() - t0, float(m["loss"]),
+                              float(m["grad_norm"])))
+            del s_pl
+        placed = dict(tree_flatten_with_path(st_shard))
+        rows, s_sh = [], state0
+        for i, b in enumerate(batches):
+            smoke.sync()
+            t0 = time.perf_counter()
+            (s_sh, m), stats = roofline.count_collectives(step, s_sh, b)
+            smoke.sync()
+            wall = time.perf_counter() - t0
+            bad = [p for p, x in tree_flatten_with_path(s_sh)
+                   if not isinstance(x, DTensor)
+                   or list(x.placements) != list(placed[p])
+                   or x.to_local().device.type != "cuda"]
+            wall_pl, loss_pl, gn_pl = plain[i]
+            row = {"step": i + 1, "loss": float(m["loss"]),
+                   "grad_norm": float(m["grad_norm"]), "wall_s": wall,
+                   "unsharded": {"loss": loss_pl, "grad_norm": gn_pl,
+                                 "wall_s": wall_pl},
+                   "bit_equal": (float(m["loss"]) == loss_pl
+                                 and float(m["grad_norm"]) == gn_pl),
+                   "collectives": {"total_bytes": stats.total_bytes,
+                                   "ops": stats.ops,
+                                   "by_kind": stats.by_kind,
+                                   "calls": [list(map(str, c))
+                                             for c in stats.calls[:20]]},
+                   "misplaced": bad}
+            rows.append(row)
+            print(f"sharded: {cfg.name} jit_train_step "
+                  f"{'with' if sp else 'without'} sequence_parallel, step "
+                  f"{i + 1}: loss {row['loss']:.6f} vs {loss_pl:.6f} "
+                  f"unsharded, grad_norm {row['grad_norm']:.6f} vs "
+                  f"{gn_pl:.6f}, bit-equal {row['bit_equal']}; wall "
+                  f"{wall:.3f} s (under count_collectives) vs {wall_pl:.3f} "
+                  f"s unsharded; collectives {stats.total_bytes} bytes in "
+                  f"{stats.ops} ops"
+                  + (f" {row['collectives']['calls']}" if stats.ops else "")
+                  + f" on {card}")
+            if bad or _rel(row["loss"], loss_pl) > SHARDED_RTOL \
+                    or _rel(row["grad_norm"], gn_pl) > SHARDED_RTOL \
+                    or not np.isfinite(row["loss"]):
+                raise AssertionError(f"sharded train step {i + 1} (sp "
+                                     f"{sp}): {row}")
+        res["sp" if sp else "no_sp"] = rows
+        del s_sh, step
+    del state0, batches
+    _free(smoke)
+    return res
+
+
+def _sharded_serve(smoke, mesh, card):
+    """zamba2-2.7b at full width and depth: `jit_prefill(impl="kernel")` of
+    2 x 2048 tokens in f32, its kernels launched on each rank's block
+    through `local_map` (counters set to 0 just before, read just after),
+    against `lm.prefill(impl="kernel")` without a mesh; then
+    `SHARDED_DECODE_STEPS` tokens of `jit_decode_step` against
+    `lm.decode_step`."""
+    torch = smoke.torch
+    from repro_torch import _build
+    from repro_torch.configs.base import ShapeSpec, get_config
+    from repro_torch.kernels.ssd_scan.kernel import LAUNCHES_PER_CALL
+    from repro_torch.launch import roofline
+    from repro_torch.models import lm
+    from repro_torch.train import train_step as ts
+    cfg = get_config(SERVE_ARCH)
+    expected = {"flash_attention": PREFILL_CALLS["flash_attention"],
+                "ssd_scan": PREFILL_CALLS["ssd_scan"] * LAUNCHES_PER_CALL}
+    params = lm.init_params(
+        cfg, torch.Generator(device=smoke.dev).manual_seed(0),
+        device=smoke.dev)
+    rng = np.random.default_rng(0)
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab, (
+        PREFILL_B, PREFILL_S)).astype(np.int32), device=smoke.dev)
+    prefill, _, _ = ts.jit_prefill(
+        cfg, mesh, ShapeSpec("chip_smoke", PREFILL_S, PREFILL_B, "prefill"),
+        torch.float32, "kernel")
+    _build.reset_counters()
+    smoke.sync()
+    t0 = time.perf_counter()
+    got, stats = roofline.count_collectives(prefill, params,
+                                            {"tokens": tokens})
+    smoke.sync()
+    wall = time.perf_counter() - t0
+    launches, plain = dict(_build.LAUNCHES), dict(_build.PLAIN_CALLS)
+    got = got.full_tensor()
+    t0 = time.perf_counter()
+    want = lm.prefill(cfg, params, {"tokens": tokens}, torch.float32,
+                      "kernel", device=smoke.dev)
+    smoke.sync()
+    wall_pl = time.perf_counter() - t0
+    err = float((got - want).abs().max())
+    res = {"config": cfg.name, "prefill": {
+        "launches": launches, "plain_calls": plain, "wall_s": wall,
+        "unsharded_wall_s": wall_pl, "max_abs_diff": err,
+        "bit_equal": bool(torch.equal(got, want)),
+        "collective_bytes": stats.total_bytes, "collective_ops": stats.ops},
+        "card": card}
+    print(f"sharded: {cfg.name} jit_prefill(impl=kernel) {PREFILL_B}x"
+          f"{PREFILL_S} f32 on the 1 x 1 mesh: launches {launches} through "
+          f"local_map, plain calls {plain}; logits max abs diff {err:.3g} vs "
+          f"lm.prefill (bit-equal {res['prefill']['bit_equal']}); wall "
+          f"{wall:.3f} s vs {wall_pl:.3f} s unsharded; collectives "
+          f"{stats.total_bytes} bytes in {stats.ops} ops on {card}")
+    if launches != expected or plain \
+            or not torch.allclose(got, want, **SHARDED_LOGIT_TOL) \
+            or tuple(got.shape) != (PREFILL_B, 1, cfg.vocab_padded) \
+            or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"sharded prefill: {res['prefill']}; expected "
+                             f"launches {expected} and no plain call")
+    del got, want
+    n = SHARDED_DECODE_STEPS
+    decode, _, _, _ = ts.jit_decode_step(
+        cfg, mesh, ShapeSpec("chip_smoke", n, PREFILL_B, "decode"),
+        torch.float32, "dus")
+    c_sh = lm.init_caches(cfg, PREFILL_B, n, torch.float32, device=smoke.dev)
+    c_pl = c_sh
+    steps = []
+    for pos in range(n):
+        tok = tokens[:, pos:pos + 1]
+        smoke.sync()
+        t0 = time.perf_counter()
+        (lg, c_sh), stats = roofline.count_collectives(decode, params, c_sh,
+                                                       tok, pos)
+        smoke.sync()
+        wall = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        lp, c_pl = lm.decode_step(cfg, params, c_pl, tok, pos, torch.float32)
+        smoke.sync()
+        wall_pl = time.perf_counter() - t0
+        lg = lg.full_tensor()
+        steps.append({"pos": pos,
+                      "max_abs_diff": float((lg - lp).abs().max()),
+                      "logits_max_abs": float(lp.abs().max()),
+                      "bit_equal": bool(torch.equal(lg, lp)),
+                      "wall_s": wall, "unsharded_wall_s": wall_pl,
+                      "collective_bytes": stats.total_bytes})
+        if not torch.allclose(lg, lp, **SHARDED_LOGIT_TOL):
+            raise AssertionError(f"sharded decode: {steps}")
+    res["decode"] = steps
+    print(f"sharded: {cfg.name} jit_decode_step x {n}: logits max abs diff "
+          f"{max(x['max_abs_diff'] for x in steps):.3g} (logits up to "
+          f"{max(x['logits_max_abs'] for x in steps):.3g}, bit-equal "
+          f"{[x['bit_equal'] for x in steps]}) vs lm.decode_step; "
+          f"walls " + ", ".join(f"{x['wall_s']:.3f}" for x in steps)
+          + " s vs " + ", ".join(f"{x['unsharded_wall_s']:.3f}"
+                                 for x in steps)
+          + f" s unsharded; collectives "
+          f"{[x['collective_bytes'] for x in steps]} bytes on {card}")
+    del params, c_sh, c_pl, lg, lp
+    _free(smoke)
+    return res
+
+
+def sharded_main_path(smoke, card):
+    """Path (viii): the sharded step on the card, on its own NCCL group of
+    one rank with a 1 x 1 `make_host_mesh()`: `_sharded_train`, then
+    `_sharded_serve`, each model freed after it; the path must start with
+    at most 1 GiB left allocated."""
+    torch = smoke.torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh
+    t_phase = time.perf_counter()
+    start = torch.cuda.memory_allocated()
+    print(f"sharded: {start / 2**30:.3f} GiB allocated on the card before "
+          f"path (viii) (at most {SHARDED_START_MAX_BYTES / 2**30:.0f} GiB)")
+    if start > SHARDED_START_MAX_BYTES:
+        raise AssertionError(f"sharded: {start / 2**30:.2f} GiB still "
+                             f"allocated from earlier phases")
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{_free_port()}", world_size=1, rank=0)
+    try:
+        mesh = make_host_mesh()
+        res = {"mesh": list(mesh.shape),
+               "train": _sharded_train(smoke, mesh, card),
+               "serve": _sharded_serve(smoke, mesh, card)}
+    finally:
+        dist.destroy_process_group()
+    res["left_allocated_bytes"] = torch.cuda.memory_allocated() - start
+    res["s"] = time.perf_counter() - t_phase
+    print(f"sharded: path (viii) {res['s']:.1f} s, "
+          f"{res['left_allocated_bytes']:,} bytes left allocated after it "
+          f"on {card}")
+    return res
+
+
 def cost_model_path(smoke, card, out):
     """Phase 3 (vii): the card's memory against `launch.mesh.HBM_BYTES`,
     `roofline.count_params` beside the parameters each model phase built
@@ -3633,6 +3892,10 @@ def main() -> int:
     cost = cost_model_path(smoke, card, out)
     out["phases"]["cost_s"] = cost["path_s"]
     out["cost"] = cost
+
+    sharded = sharded_main_path(smoke, card)
+    out["phases"]["sharded_s"] = sharded["s"]
+    out["sharded"] = sharded
 
     # -- 4. times -----------------------------------------------------------------
     # "ms" is device time per launch (Smoke.device_ms), "plain_ms" the

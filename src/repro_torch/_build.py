@@ -209,6 +209,18 @@ def refuse_grad(name: str, *tensors: torch.Tensor) -> None:
             f"grad; train with impl='ref' (or call it under torch.no_grad())")
 
 
+def refuse_dtensor(name: str, *tensors: torch.Tensor) -> None:
+    """Raise if a DTensor reaches a kernel's wrapper: a kernel runs on one
+    rank's block, which the model hands it through `local_map`
+    (`distributed.sharding.on_blocks`); the wrapper would otherwise take
+    a CPU DTensor for a CPU tensor and a CUDA one for its pointer."""
+    from torch.distributed.tensor import DTensor
+    if any(isinstance(t, DTensor) for t in tensors):
+        raise TypeError(f"{name}: a DTensor reached the kernel; run it on "
+                        f"each rank's block (distributed.sharding."
+                        f"on_blocks)")
+
+
 def check_cuda(name: str, *tensors: torch.Tensor, dtypes=None) -> None:
     """Raise unless every tensor is a contiguous CUDA tensor on one device
     (and of the matching dtype in ``dtypes``, where given)."""

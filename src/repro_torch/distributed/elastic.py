@@ -14,12 +14,9 @@ in data-parallel ways), so training curves are unaffected by elasticity.
 
 from __future__ import annotations
 
-import torch
-from torch.distributed.tensor import distribute_tensor
-
-from repro_torch._tree import tree_map
 from repro_torch.checkpoint import ckpt
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed import sharding as shd
 from repro_torch.train import train_step as ts
 
 __all__ = ["replan_batch", "restore_on_mesh"]
@@ -51,13 +48,5 @@ def restore_on_mesh(ckpt_dir: str, step: int, cfg: ArchConfig,
     ``DTensor`` on ``mesh`` (a ``DeviceMesh`` over the running group)."""
     astate = ts.abstract_train_state(cfg, hyper)
     shard = ts.state_shardings(cfg, mesh, astate)
-    if mesh.device_type == "cuda":
-        device = torch.device("cuda", torch.cuda.current_device())
-    else:
-        device = torch.device(mesh.device_type)
-    full = ckpt.restore(ckpt_dir, step, astate, device)
-    # every rank holds the same full leaf, so each keeps its own shard with
-    # no communication (src_data_rank=None)
-    return tree_map(lambda x, p: distribute_tensor(x, mesh, p,
-                                                   src_data_rank=None),
-                    full, shard)
+    full = ckpt.restore(ckpt_dir, step, astate, ts._mesh_device(mesh))
+    return shd.distribute_tree(full, mesh, shard)

@@ -33,11 +33,12 @@ import re
 import threading
 from typing import Dict, List, Optional, Tuple
 
-from repro_torch._tree import tree_map_with_path
+from repro_torch._tree import tree_map, tree_map_with_path
 
 __all__ = ["DEFAULT_RULES", "resolve", "placements", "use_mesh_rules",
            "shard_hint", "PARAM_RULES", "path_str", "logical_axes_for",
-           "param_sharding", "param_spec"]
+           "param_sharding", "param_spec", "distribute_tree", "gather_tree",
+           "block_offset", "on_blocks", "reduce_partial"]
 
 # logical axis -> mesh dim (None = replicated)
 DEFAULT_RULES: Dict[str, Optional[object]] = {
@@ -114,13 +115,90 @@ def placements(spec: Tuple, mesh) -> List:
 
 @contextlib.contextmanager
 def use_mesh_rules(mesh, rules: Optional[Dict[str, object]] = None):
-    """Enable shard_hint() inside model code."""
+    """Enable shard_hint() inside model code.  Inside, a plain tensor met
+    by a DTensor op counts as replicated (DTensor's
+    ``implicit_replication``): the model's own constants (positions,
+    masks, ranges) are the same on every rank, as JAX's are."""
+    from torch.distributed.tensor.experimental import implicit_replication
     prev = getattr(_ctx, "state", None)
     _ctx.state = (mesh, rules or DEFAULT_RULES)
     try:
-        yield
+        with implicit_replication():
+            yield
     finally:
         _ctx.state = prev
+
+
+def block_offset(placements, mesh, dim: int, n: int) -> int:
+    """The global index of this rank's first element along tensor dim
+    ``dim`` (of size ``n``) under ``placements``: its block number over
+    the mesh dims that shard ``dim``, in mesh order.  Raises
+    ``ValueError`` where those dims do not split ``n`` evenly."""
+    from torch.distributed.tensor import Shard
+    coord = mesh.get_coordinate()
+    idx, ways = 0, 1
+    for m, p in enumerate(placements):
+        if isinstance(p, Shard) and p.dim == dim:
+            idx, ways = idx * mesh.size(m) + coord[m], ways * mesh.size(m)
+    if n % ways:
+        raise ValueError(f"block_offset: {ways} ways do not split {n} "
+                         f"evenly along dim {dim}")
+    return idx * (n // ways)
+
+
+def on_blocks(fn, in_placements, out_placements, *args):
+    """``fn`` run on each rank's own block of ``args`` (DTensors on one
+    mesh), through `torch.distributed.tensor.experimental.local_map`:
+    each argument is first redistributed to its entry of
+    ``in_placements``, the outputs come back as DTensors with
+    ``out_placements``.  The gradient of an argument replicated over a
+    mesh dim that another argument shards is ``Partial`` there: each
+    rank used the whole of it for its own block of the work, so the
+    ranks' gradients sum."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = next(a.device_mesh for a in args if isinstance(a, DTensor))
+    split = [any(isinstance(p[m], Shard) for p in in_placements)
+             for m in range(mesh.ndim)]
+    grads = tuple(
+        tuple(Partial() if split[m] and isinstance(p[m], Replicate)
+              else p[m] for m in range(mesh.ndim))
+        for p in in_placements)
+    return local_map(fn, out_placements=out_placements,
+                     in_placements=tuple(tuple(p) for p in in_placements),
+                     in_grad_placements=grads, device_mesh=mesh,
+                     redistribute_inputs=True)(*args)
+
+
+def reduce_partial(x):
+    """A DTensor's pending sums (``Partial`` placements) reduced, its other
+    placements kept; anything else as it is.  For ops whose DTensor rule
+    cannot take a partial input (see the callers)."""
+    from torch.distributed.tensor import DTensor, Replicate
+    if not isinstance(x, DTensor) or not any(p.is_partial()
+                                             for p in x.placements):
+        return x
+    return x.redistribute(x.device_mesh, [Replicate() if p.is_partial()
+                                          else p for p in x.placements])
+
+
+def distribute_tree(tree, mesh, shardings):
+    """A tree of full tensors as DTensors on ``mesh``, each leaf placed by
+    the matching placement list of ``shardings`` (`param_sharding`,
+    `state_shardings`, ...).  Every rank holds the same full leaf, so each
+    keeps its own block without communication."""
+    from torch.distributed.tensor import distribute_tensor
+    return tree_map(lambda x, p: distribute_tensor(x, mesh, p,
+                                                   src_data_rank=None),
+                    tree, shardings)
+
+
+def gather_tree(tree):
+    """The full tensor of every DTensor leaf of ``tree`` (a collective
+    on every rank); plain leaves as they are."""
+    from torch.distributed.tensor import DTensor
+    return tree_map(lambda x: x.full_tensor() if isinstance(x, DTensor)
+                    else x, tree)
 
 
 def shard_hint(x, *logical):

@@ -7,7 +7,9 @@ On CUDA tensors it launches the kernel (and counts the launch in
 the plain version, `ref.attention_ref`, and counts that in
 ``_build.PLAIN_CALLS``.  The kernel has no backward (the Pallas kernel has
 none either), so on any device it refuses inputs that require grad while
-grad mode is on, rather than return a result cut from the graph.  The kernel reads any strides with a unit last
+grad mode is on, rather than return a result cut from the graph.  A DTensor
+raises (`_build.refuse_dtensor`): the model runs the kernel on each rank's
+block through `local_map`.  The kernel reads any strides with a unit last
 dimension, so the (B, S, H, D) model layout needs no transposed copy.
 """
 
@@ -40,6 +42,7 @@ def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             or k.shape[1] == 0 or q.shape[1] % k.shape[1] != 0:
         raise ValueError(f"flash_attention: shapes q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}, v {tuple(v.shape)}")
+    _build.refuse_dtensor("flash_attention", q, k, v)
     _build.refuse_grad("flash_attention", q, k, v)
     if q.device.type == "cpu":
         _build.PLAIN_CALLS["flash_attention"] += 1

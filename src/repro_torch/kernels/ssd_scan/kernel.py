@@ -7,7 +7,9 @@ launch in ``_build.LAUNCHES["ssd_scan"]``: `LAUNCHES_PER_CALL` a call) or
 raises; on CPU tensors it runs the plain version, `ref.ssd_scan_grid_ref`,
 and counts that in ``_build.PLAIN_CALLS``.  The kernel has no backward (the Pallas kernel has
 none either), so on any device it refuses inputs that require grad while
-grad mode is on, rather than return a result cut from the graph.
+grad mode is on, rather than return a result cut from the graph.  A DTensor
+raises (`_build.refuse_dtensor`): the model runs the kernel on each rank's
+block through `local_map`.
 """
 
 from __future__ import annotations
@@ -49,6 +51,7 @@ def ssd_scan_grid(x: torch.Tensor, dt: torch.Tensor, dA: torch.Tensor,
     if H % min(block_h, H) != 0:
         raise ValueError(f"ssd_scan: block_h {block_h} does not divide {H} "
                          f"heads")
+    _build.refuse_dtensor("ssd_scan", x, dt, dA, Bm, Cm)
     _build.refuse_grad("ssd_scan", x, dt, dA, Bm, Cm)
     if x.device.type == "cpu":
         _build.PLAIN_CALLS["ssd_scan"] += 1

@@ -22,22 +22,34 @@ seconds differ from the JAX module's by the constants alone.
   * MODEL_FLOPS = 6·N·D (dense) or 6·N_active·D (MoE); the ratio
     MODEL_FLOPS / FLOPs exposes padding, dispatch-einsum and remat waste.
 
-The collective half of the JAX module parses the HLO text XLA compiles,
-which the port never produces; its counterpart, a count of the sharded
-torch step's collectives, comes with that step (ROADMAP.md).
+The collective half of the JAX module parses the HLO text XLA compiles
+(`split_computations`, `entry_computation`, `parse_collectives`), which
+the port never produces, so none of them is carried over.  Its
+counterpart here, `count_collectives`, counts the collectives a sharded
+torch step issues as it runs, into the JAX module's `CollectiveStats`.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+from typing import Dict, List, Optional, Tuple
+
+import torch
 
 from repro_torch.configs.base import ArchConfig, ShapeSpec
 from repro_torch.launch.mesh import HBM_BW, ICI_BW_PER_LINK, PEAK_FLOPS_BF16
 
 __all__ = ["TP", "AnalyticCosts", "analytic_costs", "count_params",
            "active_params", "model_flops_per_token", "cache_bytes",
-           "roofline_terms"]
+           "roofline_terms", "DTYPE_BYTES", "COLLECTIVES",
+           "CollectiveStats", "count_collectives"]
+
+DTYPE_BYTES = {"f64": 8, "f32": 4, "f16": 2, "bf16": 2, "s64": 8, "u64": 8,
+               "s32": 4, "u32": 4, "s16": 2, "u16": 2, "s8": 1, "u8": 1,
+               "pred": 1, "c64": 8, "c128": 16}
+
+COLLECTIVES = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
+               "collective-permute")
 
 TP = 16  # "model" axis extent on the production mesh
 
@@ -263,3 +275,97 @@ def roofline_terms(flops_dev: float, hbm_dev: float, coll_dev: float,
     terms["roofline_fraction"] = (useful / PEAK_FLOPS_BF16) / bound \
         if bound > 0 else 0.0
     return terms
+
+
+# ---------------------------------------------------------------------------
+# Collective count of a sharded torch step
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class CollectiveStats:
+    """The JAX module's fields: bytes by kind (over `COLLECTIVES`) and by
+    process-group size, the number of collectives, and
+    ``tpu_corrected_bytes``, which equals ``total_bytes`` here: the JAX
+    module halves activation-shaped f32 collectives because XLA:CPU
+    normalises bf16 dots to f32 before partitioning, which DTensor does
+    not.  ``calls`` lists each collective as ``(kind, group ranks, bytes,
+    shape, dtype)``, the counterpart of the HLO lines
+    `parse_collectives` reads."""
+    total_bytes: int
+    by_kind: Dict[str, int]
+    by_group_size: Dict[int, int]
+    ops: int
+    tpu_corrected_bytes: int = 0
+    calls: List[Tuple] = dataclasses.field(default_factory=list)
+
+
+def _collective_kinds():
+    """``torch.ops`` overload packets of the functional collectives
+    DTensor issues, by the HLO name of their kind."""
+    funcol = torch.ops._c10d_functional
+    kinds = {funcol.all_gather_into_tensor: "all-gather",
+             funcol.all_gather_into_tensor_coalesced: "all-gather",
+             funcol.all_reduce: "all-reduce",
+             funcol.all_reduce_coalesced: "all-reduce",
+             funcol.reduce_scatter_tensor: "reduce-scatter",
+             funcol.reduce_scatter_tensor_coalesced: "reduce-scatter",
+             funcol.all_to_all_single: "all-to-all",
+             funcol.broadcast: "broadcast",
+             torch.ops._dtensor.shard_dim_alltoall: "all-to-all"}
+    return kinds
+
+
+def count_collectives(fn, *args, **kwargs):
+    """Run ``fn(*args, **kwargs)`` once and count the collectives it
+    issues on this rank: returns ``(out, CollectiveStats)``.  Each
+    ``_c10d_functional`` collective (and DTensor's ``shard_dim_alltoall``)
+    is counted by its kind, by the size of its process group and by the
+    bytes of its result on this rank, the per-device shape
+    `parse_collectives` reads first on an HLO line: the gathered block of
+    an all-gather, the kept block of a reduce-scatter.  The counter is a
+    ``TorchDispatchMode`` that lets DTensor ops through to DTensor (so it
+    sees the collectives they lower to), as
+    ``torch.distributed.tensor.debug.CommDebugMode`` does.  A broadcast,
+    which has no HLO kind here, is counted under ``"broadcast"``.  On
+    plain tensors it counts nothing."""
+    import torch.distributed as dist
+    from torch.distributed.distributed_c10d import _resolve_process_group
+    from torch.distributed.tensor import DTensor
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    kinds = _collective_kinds()
+    calls: List[Tuple] = []
+
+    class _Counter(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            kwargs = kwargs or {}
+            if isinstance(func, torch._ops.HigherOrderOperator):
+                return func(*args, **kwargs)
+            if any(issubclass(t, DTensor) for t in types):
+                return NotImplemented     # DTensor lowers it first
+            out = func(*args, **kwargs)
+            kind = kinds.get(func._overloadpacket)
+            if kind is not None:
+                # the group's name is the op's last string argument (a
+                # reduction's op name comes before it)
+                group = [a for a in list(args) + list(kwargs.values())
+                         if isinstance(a, str)][-1]
+                ranks = tuple(dist.get_process_group_ranks(
+                    _resolve_process_group(group)))
+                for t in (out if isinstance(out, (list, tuple)) else [out]):
+                    calls.append((kind, ranks,
+                                  t.numel() * t.element_size(),
+                                  tuple(t.shape), t.dtype))
+            return out
+
+    with _Counter():
+        out = fn(*args, **kwargs)
+    by_kind = {k: 0 for k in COLLECTIVES}
+    by_gs: Dict[int, int] = {}
+    for kind, ranks, nbytes, _, _ in calls:
+        by_kind[kind] = by_kind.get(kind, 0) + nbytes
+        by_gs[len(ranks)] = by_gs.get(len(ranks), 0) + nbytes
+    total = sum(c[2] for c in calls)
+    return out, CollectiveStats(total_bytes=total, by_kind=by_kind,
+                                by_group_size=by_gs, ops=len(calls),
+                                tpu_corrected_bytes=total, calls=calls)

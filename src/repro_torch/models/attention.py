@@ -14,8 +14,11 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 import repro_torch
+from repro_torch.distributed import sharding as shd
+from repro_torch.distributed.sharding import shard_hint
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.models.layers import _normal, apply_rope, cast
 
@@ -71,6 +74,9 @@ def qkv_proj(params, cfg: AttnConfig, x: torch.Tensor,
     v = v.reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
+    q = shard_hint(q, "batch", "seq", "heads", "null")
+    k = shard_hint(k, "batch", "seq", "kv_heads", "null")
+    v = shard_hint(v, "batch", "seq", "kv_heads", "null")
     return q, k, v
 
 
@@ -131,24 +137,73 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.to(q.dtype)
 
 
+def _attend(q, k, v, cfg: AttnConfig, impl: str) -> torch.Tensor:
+    """The backend on plain tensors, k/v with one head per query head."""
+    S = q.shape[1]
+    if impl == "kernel":
+        return fa_ops.flash_attention(q, k, v, causal=cfg.causal)
+    if impl == "ref":
+        return chunked_attention(q, k, v, cfg.causal, min(cfg.chunk_q, S),
+                                 min(cfg.chunk_k, S))
+    raise ValueError(f"attention impl {impl!r}: expected 'ref' or "
+                     f"'kernel'")
+
+
+def _attend_on_blocks(q, k, v, cfg: AttnConfig, impl: str):
+    """The backend on each rank's (batch, heads) block of DTensor q, k, v
+    (`shd.on_blocks`): attention is independent per batch row and per
+    head.  Query heads keep the mesh dims their hint gave them; kv heads
+    keep theirs where they match the query heads', else are whole.  Each
+    rank then expands its kv block by the global index of its query
+    heads: local head i is global head ``q_off + i`` and meets kv head
+    ``(q_off + i) // group``, which is local kv head ``... - kv_off``."""
+    mesh = q.device_mesh
+    qpl, kpl = [], []
+    for pq, pk in zip(q.placements, k.placements):
+        if pq == Shard(0):
+            qpl.append(pq)
+            kpl.append(pq)
+        elif pq == Shard(2):
+            qpl.append(pq)
+            kpl.append(pq if pk == Shard(2) else Replicate())
+        else:
+            qpl.append(Replicate())
+            kpl.append(Replicate())
+    group = cfg.n_heads // cfg.n_kv_heads
+    q_off = shd.block_offset(qpl, mesh, 2, cfg.n_heads)
+    kv_off = shd.block_offset(kpl, mesh, 2, cfg.n_kv_heads)
+
+    def local(ql, kl, vl):
+        hl = ql.shape[2]
+        if q_off % group == 0 and hl % group == 0 or group % hl == 0:
+            # whole groups (or one group's share): the rank's kv heads,
+            # expanded as on one device
+            lo, n = q_off // group - kv_off, max(1, hl // group)
+            kl, vl = (_expand_kv(t.narrow(2, lo, n), hl) for t in (kl, vl))
+        else:
+            idx = (q_off + torch.arange(hl, device=ql.device)) // group \
+                - kv_off
+            kl, vl = kl.index_select(2, idx), vl.index_select(2, idx)
+        return _attend(ql, kl, vl, cfg, impl)
+
+    return shd.on_blocks(local, (qpl, kpl, kpl), qpl, q, k, v)
+
+
 def attention_train(params, cfg: AttnConfig, x: torch.Tensor,
                     positions: torch.Tensor, compute_dtype=torch.bfloat16,
                     impl: str = "ref") -> torch.Tensor:
     """Full-sequence attention (training / prefill).  The kv heads are
     expanded before the backend, as in the JAX package, so the kernel
-    sees one kv head per query head on this path."""
+    sees one kv head per query head on this path.  On DTensors the
+    backend runs on each rank's block (`_attend_on_blocks`)."""
     B, S, _ = x.shape
     q, k, v = qkv_proj(params, cfg, x, positions, compute_dtype)
-    k = _expand_kv(k, cfg.n_heads)
-    v = _expand_kv(v, cfg.n_heads)
-    if impl == "kernel":
-        out = fa_ops.flash_attention(q, k, v, causal=cfg.causal)
-    elif impl == "ref":
-        out = chunked_attention(q, k, v, cfg.causal,
-                                min(cfg.chunk_q, S), min(cfg.chunk_k, S))
+    if isinstance(q, DTensor):
+        out = _attend_on_blocks(q, k, v, cfg, impl)
     else:
-        raise ValueError(f"attention impl {impl!r}: expected 'ref' or "
-                         f"'kernel'")
+        out = _attend(q, _expand_kv(k, cfg.n_heads),
+                      _expand_kv(v, cfg.n_heads), cfg, impl)
+    out = shard_hint(out, "batch", "seq", "heads", "null")
     out = out.reshape(B, S, cfg.n_heads * cfg.head_dim)
     return out @ cast(params["wo"], compute_dtype)
 
@@ -161,6 +216,30 @@ def init_kv_cache(batch: int, max_len: int, cfg: AttnConfig,
     dev = repro_torch.resolve_device(device)
     return {"k": torch.zeros(shape, dtype=dtype, device=dev),
             "v": torch.zeros(shape, dtype=dtype, device=dev)}
+
+
+def _write_at(cache: torch.Tensor, new: torch.Tensor, pos: int):
+    """A copy of ``cache`` (B, Smax, Hkv, D) holding ``new`` (B, 1, Hkv, D)
+    at sequence position ``pos``.  On a DTensor each rank writes into its
+    own block of the copy (`shd.on_blocks`), the one whose sequence range
+    holds ``pos``: DTensor's ``aten.copy_`` into a slice of a cache
+    sharded along its sequence writes the slice of every rank's block
+    (wrong values, no error), so the write is placed explicitly."""
+    if not isinstance(cache, DTensor):
+        out = cache.clone()
+        out[:, pos:pos + 1] = new.to(out.dtype)
+        return out
+    cpl = list(cache.placements)
+    npl = [Replicate() if p == Shard(1) else p for p in cpl]
+    off = shd.block_offset(cpl, cache.device_mesh, 1, cache.shape[1])
+
+    def local(c, n):
+        out = c.clone()
+        if 0 <= pos - off < c.shape[1]:
+            out[:, pos - off:pos - off + 1] = n.to(out.dtype)
+        return out
+
+    return shd.on_blocks(local, (cpl, npl), cpl, cache, new)
 
 
 def attention_decode(params, cfg: AttnConfig, x: torch.Tensor, cache,
@@ -184,10 +263,8 @@ def attention_decode(params, cfg: AttnConfig, x: torch.Tensor, cache,
         k_cache = torch.where(sel, k_new.to(cache["k"].dtype), cache["k"])
         v_cache = torch.where(sel, v_new.to(cache["v"].dtype), cache["v"])
     elif cache_update == "dus":
-        k_cache = cache["k"].clone()
-        v_cache = cache["v"].clone()
-        k_cache[:, pos:pos + 1] = k_new.to(k_cache.dtype)
-        v_cache[:, pos:pos + 1] = v_new.to(v_cache.dtype)
+        k_cache = _write_at(cache["k"], k_new, pos)
+        v_cache = _write_at(cache["v"], v_new, pos)
     else:
         raise ValueError(f"cache_update {cache_update!r}: expected 'dus' "
                          f"or 'blend'")
@@ -203,6 +280,9 @@ def attention_decode(params, cfg: AttnConfig, x: torch.Tensor, cache,
     s = torch.where(mask, s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bhgqk,bkhd->bqhgd", p, vf)
-    out = out.reshape(B, 1, cfg.n_heads * cfg.head_dim).to(compute_dtype)
-    out = out @ cast(params["wo"], compute_dtype)
+    # one (B, H*D) x (H*D, d) product, as torch.matmul folds the (B, 1,
+    # H*D) one on a plain tensor (a DTensor's strides for the unit dim keep
+    # matmul from folding it, and its batched product rounds otherwise)
+    out = out.reshape(B, cfg.n_heads * cfg.head_dim).to(compute_dtype)
+    out = (out @ cast(params["wo"], compute_dtype))[:, None]
     return out, {"k": k_cache, "v": v_cache}

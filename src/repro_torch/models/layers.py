@@ -2,9 +2,10 @@
 
 The port of `repro.models.layers`.  Parameters are plain dicts of tensors;
 the compute dtype policy is explicit (parameters live in their own dtype,
-compute runs in ``compute_dtype``, reductions and logits in f32).  The JAX
-module's activation sharding hints are no-ops on one device and are
-dropped here.
+compute runs in ``compute_dtype``, reductions and logits in f32).  The
+activation hints (`distributed.sharding.shard_hint`) sit where the JAX
+module's do: no-ops on plain tensors, a redistribute of a DTensor on a
+mesh.
 
 Random initializers draw from an explicit ``torch.Generator`` and put the
 tensors on the generator's device.  Given :data:`SHAPE_ONLY` in its place,
@@ -16,8 +17,11 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 import repro_torch
+from repro_torch.distributed.sharding import (block_offset, on_blocks,
+                                              shard_hint)
 
 __all__ = ["cast", "rms_norm", "init_rms_norm", "rope_freqs", "apply_rope",
            "init_mlp", "mlp_swiglu", "mlp_gelu", "init_embed",
@@ -102,6 +106,7 @@ def mlp_swiglu(params, x: torch.Tensor,
     gate = x @ cast(params["w_gate"], compute_dtype)
     up = x @ cast(params["w_up"], compute_dtype)
     h = F.silu(gate) * up
+    h = shard_hint(h, "batch", "seq", "mlp")
     return h @ cast(params["w_down"], compute_dtype)
 
 
@@ -111,6 +116,7 @@ def mlp_gelu(params, x: torch.Tensor,
     approximation, as `jax.nn.gelu` computes by default."""
     x = cast(x, compute_dtype)
     h = F.gelu(x @ cast(params["w_up"], compute_dtype), approximate="tanh")
+    h = shard_hint(h, "batch", "seq", "mlp")
     return h @ cast(params["w_down"], compute_dtype)
 
 
@@ -126,7 +132,38 @@ def embed_tokens(params, tokens: torch.Tensor,
                  compute_dtype=torch.bfloat16) -> torch.Tensor:
     """Rows of the table, cast after the gather (elementwise, so the same
     values as casting the whole table first)."""
-    return cast(params["tokens"][tokens.long()], compute_dtype)
+    table = params["tokens"]
+    if isinstance(table, DTensor):
+        out = _embed_on_blocks(table, tokens)
+    else:
+        out = table[tokens.long()]
+    return shard_hint(cast(out, compute_dtype), "batch", "seq", "embed_act")
+
+
+def _embed_on_blocks(table, tokens):
+    """The lookup on each rank's blocks of DTensors (`on_blocks`), vocab-
+    parallel: a rank holding rows ``[off, off + n)`` of the table looks up
+    the tokens in its range and gives zeros for the rest, and the ranks'
+    rows sum (``Partial`` over the table's vocab dims).  DTensor's own
+    rules meet the table's embed dim, sharded over "data" (FSDP), by
+    gathering the data-sharded tokens, and in the backward
+    (``aten.index_put``) the activation gradients too, over "data"; so
+    the table is redistributed explicitly: its embed dim gathered, as
+    GSPMD gathers it, and no row of the batch moves."""
+    tpl = [Shard(0) if p == Shard(0) else Replicate()
+           for p in tokens.placements]
+    wpl = [Shard(0) if p == Shard(0) and t != Shard(0) else Replicate()
+           for p, t in zip(table.placements, tpl)]
+    opl = [Partial() if w == Shard(0) else t for w, t in zip(wpl, tpl)]
+    off = block_offset(wpl, table.device_mesh, 0, table.shape[0])
+
+    def local(tab, tok):
+        idx = tok.long() - off
+        hit = (idx >= 0) & (idx < tab.shape[0])
+        rows = tab[idx.clamp(0, tab.shape[0] - 1)]
+        return torch.where(hit[..., None], rows, torch.zeros_like(rows))
+
+    return on_blocks(local, (wpl, tpl), opl, table, tokens)
 
 
 def init_unembed(gen: torch.Generator, d_model: int, vocab: int,
@@ -139,4 +176,5 @@ def unembed_logits(params, x: torch.Tensor,
                    compute_dtype=torch.bfloat16) -> torch.Tensor:
     """Logits in f32 (sampling numerics)."""
     logits = cast(x, compute_dtype) @ cast(params["unembed"], compute_dtype)
+    logits = shard_hint(logits, "batch", "seq", "vocab")
     return logits.float()

@@ -41,6 +41,8 @@ from torch.utils import checkpoint as ckpt_util
 import repro_torch
 from repro_torch._tree import tree_map as _map
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed import sharding as shd
+from repro_torch.distributed.sharding import shard_hint
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as m2
@@ -236,9 +238,13 @@ def _transformer_layer(cfg, p, x, positions, compute_dtype, impl,
                        moe_impl="gshard"):
     """Attention + MLP (SwiGLU; GELU for the encoder) or MoE.  Returns
     (x, the MoE aux losses or None)."""
+    # Megatron-SP: residuals and norms run sequence-sharded when the rules
+    # map "seq_act" to "model" (a no-op otherwise)
+    x = shard_hint(x, "batch", "seq_act", "embed_act")
     h = L.rms_norm(x, p["norm_attn"])
     x = x + attn.attention_train(p["attn"], attn_config(cfg), h, positions,
                                  compute_dtype, impl)
+    x = shard_hint(x, "batch", "seq_act", "embed_act")
     h = L.rms_norm(x, p["norm_mlp"])
     if cfg.family == "moe":
         out, aux = moe_mod.moe_block(p["moe"], moe_config(cfg), h,
@@ -528,7 +534,8 @@ def loss_fn(cfg: ArchConfig, params, batch, compute_dtype=torch.bfloat16,
         targets = torch.cat([targets.new_zeros(
             (targets.shape[0], cfg.stub_seq)), targets], dim=1)
     lse = torch.logsumexp(logits, dim=-1)
-    tgt = torch.gather(logits, -1, targets[..., None])[..., 0]
+    tgt = shd.reduce_partial(torch.gather(logits, -1, targets[..., None]))
+    tgt = tgt[..., 0]
     nll = (lse - tgt) * mask
     loss = nll.sum() / torch.clamp(mask.sum(), min=1.0)
     total = loss + aux["lb_loss"] + aux["z_loss"]

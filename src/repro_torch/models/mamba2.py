@@ -20,8 +20,11 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 import repro_torch
+from repro_torch.distributed import sharding as shd
+from repro_torch.distributed.sharding import shard_hint
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.models.layers import _normal, cast
 
@@ -114,14 +117,42 @@ def ssd_chunked(x, dt, A, B, C, D, chunk: int, initial_state=None,
     """SSD scan.  Shapes:
       x: (b, S, h, p)   dt: (b, S, h)   A: (h,)  [negative decay rates]
       B, C: (b, S, n)   D: (h,)
-    Returns (y: (b,S,h,p), final_state: (b,h,p,n)).
+    Returns (y: (b,S,h,p), final_state: (b,h,p,n)).  On DTensors the scan
+    runs on each rank's (batch, heads) block (`_ssd_on_blocks`).
     """
+    if isinstance(x, DTensor):
+        if initial_state is not None:
+            raise NotImplementedError("ssd_chunked on DTensors starts from "
+                                      "the zero state (prefill, training)")
+        return _ssd_on_blocks(x, dt, A, B, C, D, chunk, impl)
     if impl == "kernel":
         return ssd_ops.ssd_scan(x, dt, A, B, C, D, chunk=chunk,
                                 initial_state=initial_state)
     if impl != "ref":
         raise ValueError(f"ssd impl {impl!r}: expected 'ref' or 'kernel'")
     return ssd_chunked_ref(x, dt, A, B, C, D, chunk, initial_state)
+
+
+def _ssd_on_blocks(x, dt, A, B, C, D, chunk: int, impl: str):
+    """The scan on each rank's block of DTensors (`shd.on_blocks`): it is
+    independent per batch row and per head, so x and dt keep the batch and
+    head mesh dims x's hint gave them, A and D (per head) the head dims,
+    B and C (shared by the heads) the batch dims; everything else whole."""
+    xpl, apl, bpl, spl = [], [], [], []
+    for p in x.placements:
+        if p == Shard(0) or p == Shard(2):
+            xpl.append(p)
+        else:
+            xpl.append(Replicate())
+        apl.append(Shard(0) if p == Shard(2) else Replicate())
+        bpl.append(p if p == Shard(0) else Replicate())
+        spl.append(Shard(1) if p == Shard(2) else bpl[-1])
+
+    def local(xl, dtl, al, bl, cl, dl):
+        return ssd_chunked(xl, dtl, al, bl, cl, dl, chunk, impl=impl)
+
+    return shd.on_blocks(local, (xpl, xpl, apl, bpl, bpl, apl), (xpl, spl),
+                         x, dt, A, B, C, D)
 
 
 def ssd_chunked_ref(x, dt, A, B, C, D, chunk: int, initial_state=None):
@@ -190,6 +221,7 @@ def mamba_block(params, cfg: MambaConfig, x: torch.Tensor,
     B = conv_out[..., cfg.d_inner:cfg.d_inner + cfg.d_state]
     C = conv_out[..., cfg.d_inner + cfg.d_state:]
     xh = xs.reshape(Bsz, S, cfg.n_heads, cfg.head_dim)
+    xh = shard_hint(xh, "batch", "seq", "heads", "null")
     dt = dt + cast(params["dt_bias"], compute_dtype)
     A = -torch.exp(params["A_log"].float())
     y, _ = ssd_chunked(xh, dt, A, B, C, params["D"], cfg.chunk, impl=impl)

@@ -12,10 +12,10 @@ The semantics are the JAX function's: capacity ``C = max(1, int(cf * K *
 S / E))`` with E the padded expert count, a token's slot in its expert
 counted over the flattened (S*K) axis (s major, k minor), over-capacity
 slots dropped, the shared expert on every token, the router, the shared
-gate and the aux losses in f32.  The JAX module's expert-parallel sharding
-hints are no-ops on one device and are dropped here.  The router, the
-dispatch, the expert SwiGLU and the combine are torch ops: the JAX
-package computes them outside any Pallas kernel too.
+gate and the aux losses in f32.  The expert-parallel hints
+(`distributed.sharding.shard_hint`) sit where the JAX module's do.  The
+router, the dispatch, the expert SwiGLU and the combine are torch ops:
+the JAX package computes them outside any Pallas kernel too.
 """
 
 from __future__ import annotations
@@ -25,7 +25,10 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
+from repro_torch.distributed import sharding as shd
+from repro_torch.distributed.sharding import shard_hint
 from repro_torch.models.layers import _normal, cast, init_mlp, mlp_swiglu
 
 __all__ = ["MoeConfig", "init_moe", "moe_block"]
@@ -90,6 +93,30 @@ def _top_k(probs: torch.Tensor, k: int):
     sort."""
     order = torch.sort(probs, dim=-1, descending=True, stable=True)
     return order.values[..., :k], order.indices[..., :k]
+
+
+def _expert_ffn(xe, wg, wu, wd):
+    """SwiGLU of every expert on its capacity buffer: xe (B,E,C,D) ->
+    (B,E,C,D)."""
+    h = F.silu(torch.einsum("becd,edf->becf", xe, wg)) * \
+        torch.einsum("becd,edf->becf", xe, wu)
+    h = shard_hint(h, "batch", "expert", "null", "mlp_ep")
+    return torch.einsum("becf,efd->becd", h, wd)
+
+
+def _experts_on_blocks(xe, wg, wu, wd):
+    """`_expert_ffn` on each rank's (batch, expert) block of DTensors.
+    DTensor's einsum of a batch-sharded buffer with the expert weights
+    permutes and then calls ``aten.view`` on a local block that the
+    permute left non-contiguous, which raises; so the weights are
+    redistributed explicitly to the buffer's expert placements (gathered
+    over their FSDP "embed" dim, as GSPMD gathers them) and the three
+    einsums run on the local blocks."""
+    xpl = [p if p in (Shard(0), Shard(1)) else Replicate()
+           for p in xe.placements]
+    wpl = [Shard(0) if p == Shard(1) else Replicate() for p in xpl]
+    return shd.on_blocks(_expert_ffn, (xpl, wpl, wpl, wpl), xpl,
+                         xe, wg, wu, wd)
 
 
 def moe_block(params, cfg: MoeConfig, x: torch.Tensor,
@@ -161,13 +188,15 @@ def moe_block(params, cfg: MoeConfig, x: torch.Tensor,
         combine = (disp * gate_vals[..., None, None].to(cd)).sum(2)
         del disp
         xe = torch.einsum("bsd,bsec->becd", xc, dispatch)
+    xe = shard_hint(xe, "batch", "expert", "null", "embed_act")
 
-    # expert FFN (SwiGLU)
+    # expert FFN (SwiGLU), the expert axis over "model" on a mesh
     wg, wu, wd = (cast(params["w_gate"], cd), cast(params["w_up"], cd),
                   cast(params["w_down"], cd))
-    h = F.silu(torch.einsum("becd,edf->becf", xe, wg)) * \
-        torch.einsum("becd,edf->becf", xe, wu)
-    ye = torch.einsum("becf,efd->becd", h, wd)
+    if isinstance(xe, DTensor):
+        ye = _experts_on_blocks(xe, wg, wu, wd)
+    else:
+        ye = _expert_ffn(xe, wg, wu, wd)
 
     if impl == "sorted":
         gathered = ye.reshape(B, E * C, D)[bidx, dest]        # (B,S,K,D)
@@ -175,6 +204,7 @@ def moe_block(params, cfg: MoeConfig, x: torch.Tensor,
         out = (gathered * w).sum(dim=2)
     else:
         out = torch.einsum("becd,bsec->bsd", ye, combine)
+    out = shard_hint(out, "batch", "seq", "embed_act")
 
     if cfg.d_ff_shared:
         sh = mlp_swiglu(params["shared"], x, cd)

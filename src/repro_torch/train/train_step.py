@@ -1,20 +1,25 @@
-"""The train step on one device: mixed precision, remat, gradient
-accumulation over microbatches, cross-pod gradient compression, AdamW.
-The port of `repro.train.train_step` without the mesh.
+"""The train step: mixed precision, remat, gradient accumulation over
+microbatches, cross-pod gradient compression, AdamW, on one device or on
+a mesh.  The port of `repro.train.train_step`.
 
-`build_train_step(cfg, hyper)` returns ``step_fn(state, batch) -> (state,
-metrics)``.  Gradients come from `torch.autograd` through `lm.loss_fn`
-(with ``hyper.impl`` "ref": the kernels have no backward); microbatches
-run one after another and their f32 gradients are summed, then averaged,
-as the JAX `_accum_loop` scan does.  The step is functional like the JAX
-one: it returns a new state and leaves the given one as it was.
+`build_train_step(cfg, hyper, mesh=None)` returns ``step_fn(state, batch)
+-> (state, metrics)``.  Gradients come from `torch.autograd` through
+`lm.loss_fn` (with ``hyper.impl`` "ref": the kernels have no backward);
+microbatches run one after another and their f32 gradients are summed,
+then averaged, as the JAX `_accum_loop` scan does.  The step is
+functional like the JAX one: it returns a new state and leaves the given
+one as it was.
 
-The rule functions of the JAX module's mesh half are here: `arch_rules`,
-`batch_specs` (specs as tuples, the contents of JAX's ``PartitionSpec``),
-`state_shardings` and `cache_shardings` (DTensor placement trees,
-`distributed.sharding`).  The steps that run on a mesh (`jit_train_step`,
-`jit_decode_step`, `jit_prefill`) and the ``sequence_parallel`` knob
-wait for the sharded-step slice (ROADMAP.md).
+On a mesh the step is a DTensor program, PyTorch's counterpart of GSPMD:
+the state and the batch are `torch.distributed.tensor.DTensor` objects placed
+by the rule functions below (`state_shardings`, `batch_specs`,
+`cache_shardings`: placement trees, `distributed.sharding`), the model's
+`shard_hint` calls redistribute its activations where the JAX model's
+``with_sharding_constraint`` calls stand, and DTensor's sharding propagation
+inserts the collectives XLA's partitioner inserts.  `jit_train_step`,
+`jit_prefill` and `jit_decode_step` keep the JAX names and returns, with
+placement trees for ``NamedSharding`` objects; nothing is compiled, the
+returned functions run eagerly, op by op.
 """
 
 from __future__ import annotations
@@ -35,7 +40,8 @@ from repro_torch.optim import adamw, grad_compress
 
 __all__ = ["TrainHyper", "TrainState", "arch_rules", "batch_specs",
            "state_shardings", "make_train_state", "abstract_train_state",
-           "build_train_step", "train_state_from_numpy", "cache_shardings"]
+           "build_train_step", "train_state_from_numpy", "cache_shardings",
+           "jit_train_step", "jit_prefill", "jit_decode_step"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,6 +55,8 @@ class TrainHyper:
     impl: str = "ref"             # kernel backend ("kernel" has no backward)
     cast_params_once: bool = False   # cast f32 matrices to compute_dtype
                                      # once per step, before the layers
+    sequence_parallel: bool = False  # Megatron-SP residuals: seq sharded on
+                                     # "model" between TP regions (a mesh)
     moe_impl: str = "gshard"
 
 
@@ -169,21 +177,117 @@ def _value_and_grad(loss_of, params, batch):
         k: v.detach() for k, v in metrics.items()}
 
 
-def build_train_step(cfg: ArchConfig, hyper: TrainHyper):
+def _microbatches(batch, nm: int):
+    """The ``nm`` microbatches of ``batch``.  On plain tensors microbatch
+    i is rows ``[i * B // nm, (i + 1) * B // nm)``, JAX's ``reshape((nm,
+    B // nm) + ...)``.  A DTensor is split on each rank: microbatch i
+    holds the i-th of ``nm`` equal slices of every data rank's own rows,
+    so no row moves (DTensor's reshape would put whole microbatches on
+    single data ranks and gather each in turn).  With one data rank the
+    two are the same rows."""
+    from torch.distributed.tensor import DTensor
+    first = next(iter(batch.values()))
+    local = first.to_local() if isinstance(first, DTensor) else first
+    if local.shape[0] % nm:
+        raise ValueError(f"batch {first.shape[0]} ({local.shape[0]} rows a "
+                         f"rank) does not split into {nm} microbatches")
+
+    def split(v, i):
+        if not isinstance(v, DTensor):
+            return v.reshape((nm, v.shape[0] // nm) + v.shape[1:])[i]
+        lv = v.to_local()
+        lv = lv.reshape((nm, lv.shape[0] // nm) + lv.shape[1:])[i]
+        return DTensor.from_local(lv, v.device_mesh, v.placements,
+                                  run_check=False)
+
+    return [{k: split(v, i) for k, v in batch.items()} for i in range(nm)]
+
+
+def _as_placed(grads, params):
+    """Each DTensor gradient redistributed to its parameter's placements
+    (the pending sums of a data-sharded computation reduced: all-reduce,
+    or reduce-scatter onto an FSDP shard), so that AdamW and the
+    compression run shard by shard, as JAX's gradients arrive sharded
+    like their parameters; plain gradients as they are."""
+    from torch.distributed.tensor import DTensor
+    return tree_map(lambda g, p: g.redistribute(p.device_mesh, p.placements)
+                    if isinstance(g, DTensor) else g, grads, params)
+
+
+def _live_rules(rules, mesh):
+    """``rules`` without the mesh dims of size one: such a dim splits
+    nothing, so a logical axis mapped only to it is replicated, as
+    `distributed.sharding.resolve` drops the dims a mesh lacks.  On the
+    card's 1 x 1 mesh every placement is then ``Replicate``: torch 2.11's
+    DTensor refuses some ops on a ``Shard`` over a dim of size one (a
+    flatten across a sharded dim, ``aten.index_put`` with batch-sharded
+    values) that it runs replicated, with the same local blocks."""
+    one = {n for n, k in zip(mesh.mesh_dim_names, mesh.shape) if k == 1}
+
+    def keep(m):
+        if isinstance(m, tuple):
+            kept = tuple(x for x in m if x not in one)
+            return kept if len(kept) > 1 else (kept[0] if kept else None)
+        return None if m in one else m
+    return {k: keep(v) for k, v in rules.items()}
+
+
+def _live(shardings, mesh):
+    """A placement tree with ``Replicate`` on every mesh dim of size one
+    (see `_live_rules`)."""
+    from torch.distributed.tensor import Replicate
+    return tree_map(lambda pl: [Replicate() if mesh.size(m) == 1 else p
+                                for m, p in enumerate(pl)], shardings)
+
+
+def _fsdp_gathered(params, mesh, rules):
+    """Each DTensor parameter with its shards over the batch's mesh dims
+    (FSDP: "embed" over "data") gathered, its other placements kept, as
+    GSPMD gathers an FSDP weight for its matmul; the backward of the
+    gather reduce-scatters its gradient onto the shard.  Left to itself,
+    DTensor's matmul rule may meet a weight's data-sharded contraction dim
+    by moving the data-sharded activations instead, which moves rows of
+    the batch between data ranks."""
+    from torch.distributed.tensor import DTensor, Replicate
+    spec = shd.resolve(rules, mesh, "batch")[0]
+    names = spec if isinstance(spec, tuple) else (() if spec is None
+                                                  else (spec,))
+    dims = {mesh.mesh_dim_names.index(n) for n in names}
+
+    def one(p):
+        if not isinstance(p, DTensor) or not any(
+                p.placements[m].is_shard() for m in dims):
+            return p
+        return p.redistribute(mesh, [Replicate() if m in dims else q
+                                     for m, q in enumerate(p.placements)])
+    return tree_map(one, params)
+
+
+def build_train_step(cfg: ArchConfig, hyper: TrainHyper, mesh=None):
     """Returns ``step_fn(state, batch) -> (state, metrics)``; ``batch``
     holds the family's inputs on the state's device (``tokens``;
     ``frames`` for the encoder; ``patch_embeds`` beside the tokens for
     vlm) and ``targets``, with a leading batch axis B that is a multiple
     of ``hyper.microbatches``.  The gradient is that of `lm.loss_fn`'s
     total (the loss plus the MoE aux losses), dispatched with
-    ``hyper.moe_impl``."""
+    ``hyper.moe_impl``.  With a ``mesh`` the state and the batch are
+    DTensors on it and the step runs under `use_mesh_rules` with the
+    arch's rules (``seq_act`` on "model" for ``sequence_parallel``); see
+    `jit_train_step` for the placed step."""
     nm = hyper.microbatches
+    rules = arch_rules(cfg)
+    if hyper.sequence_parallel:
+        rules = {**rules, "seq_act": "model"}
+    if mesh is not None:
+        rules = _live_rules(rules, mesh)
 
     def loss_of(p, mb):
         if hyper.cast_params_once:
             p = tree_map(lambda a: a.to(hyper.compute_dtype)
                          if (a.dtype == torch.float32 and a.dim() >= 2)
                          else a, p)
+        if mesh is not None:
+            p = _fsdp_gathered(p, mesh, rules)
         return lm.loss_fn(cfg, p, mb, compute_dtype=hyper.compute_dtype,
                           impl=hyper.impl, remat=hyper.remat,
                           moe_impl=hyper.moe_impl)
@@ -192,16 +296,12 @@ def build_train_step(cfg: ArchConfig, hyper: TrainHyper):
         params = tree_map(lambda t: t.detach().requires_grad_(), state.params)
         if nm == 1:
             grads, metrics = _value_and_grad(loss_of, params, batch)
+            grads = _as_placed(grads, state.params)
         else:
-            b = next(iter(batch.values())).shape[0]
-            if b % nm:
-                raise ValueError(f"batch {b} does not split into {nm} "
-                                 f"microbatches")
-            mbatch = {k: v.reshape((nm, v.shape[0] // nm) + v.shape[1:])
-                      for k, v in batch.items()}
-            zero = tree_map(lambda p: torch.zeros(
-                p.shape, dtype=torch.float32, device=p.device), params)
-            grads, metrics = _accum_loop(loss_of, params, mbatch, zero)
+            zero = tree_map(lambda p: torch.zeros_like(
+                p, dtype=torch.float32), state.params)
+            grads, metrics = _accum_loop(loss_of, params,
+                                         _microbatches(batch, nm), zero)
             grads = tree_map(lambda g: g / nm, grads)
 
         ef = state.ef
@@ -213,21 +313,105 @@ def build_train_step(cfg: ArchConfig, hyper: TrainHyper):
                 hyper.adamw, state.params, grads, state.opt)
         return TrainState(new_params, opt, ef), {**metrics, **opt_metrics}
 
-    return step_fn
+    if mesh is None:
+        return step_fn
+
+    def mesh_step(state: TrainState, batch):
+        with shd.use_mesh_rules(mesh, rules):
+            return step_fn(state, batch)
+
+    return mesh_step
 
 
-def _accum_loop(loss_of, params, mbatch, zero):
+def _accum_loop(loss_of, params, mbatches, zero):
     """Microbatches in order, summing f32 gradients into ``zero`` (in
-    place: it is the step's own buffer) and averaging the metrics."""
-    n = next(iter(mbatch.values())).shape[0]
+    place: it is the step's own buffer, placed like the parameters) and
+    averaging the metrics."""
     g_acc, ms = zero, []
-    for i in range(n):
-        g, m = _value_and_grad(loss_of, params,
-                               {k: v[i] for k, v in mbatch.items()})
-        tree_map(lambda a, b: a.add_(b.float()), g_acc, g)
+    for mb in mbatches:
+        g, m = _value_and_grad(loss_of, params, mb)
+        tree_map(lambda a, b: a.add_(b.float()), g_acc,
+                 _as_placed(g, g_acc))
         ms.append(m)
     metrics = {k: torch.stack([m[k] for m in ms]).mean() for k in ms[0]}
     return g_acc, metrics
+
+
+def _place(tree, shardings, mesh):
+    """The inputs of a placed step, as JAX's ``in_shardings`` take them:
+    a DTensor redistributed to its placements, a plain tensor (the same
+    full value on every rank) distributed by them."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
+
+    def one(x, p):
+        if isinstance(x, DTensor):
+            return x if list(x.placements) == list(p) else \
+                x.redistribute(mesh, p)
+        return distribute_tensor(torch.as_tensor(x), mesh, p,
+                                 src_data_rank=None)
+    return tree_map(one, tree, shardings)
+
+
+def _rows_by_microbatch(x, placements, mesh, nm: int):
+    """A full batch tensor (the same on every rank) with its rows laid out
+    so that, once distributed by ``placements``, each data rank's block
+    holds its share of every microbatch in turn: `_microbatches` then
+    finds in microbatch i JAX's rows ``[i * B // nm, (i + 1) * B // nm)``,
+    in order, and no row moves.  A DTensor (already placed) or one
+    microbatch: as it is."""
+    from torch.distributed.tensor import DTensor, Shard
+    dp = 1
+    for m, p in enumerate(placements):
+        if p == Shard(0):
+            dp *= mesh.size(m)
+    if isinstance(x, DTensor) or nm == 1 or dp == 1:
+        return x
+    x = torch.as_tensor(x)
+    return x.reshape((nm, dp, -1) + x.shape[1:]).transpose(0, 1).reshape(
+        x.shape)
+
+
+def _full(metrics):
+    """Metrics as plain tensors, the same on every rank (JAX's replicated
+    outputs)."""
+    from torch.distributed.tensor import DTensor
+    return {k: v.full_tensor() if isinstance(v, DTensor) else v
+            for k, v in metrics.items()}
+
+
+def _mesh_device(mesh) -> torch.device:
+    if mesh.device_type == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device(mesh.device_type)
+
+
+def jit_train_step(cfg: ArchConfig, mesh, hyper: TrainHyper,
+                   shape: ShapeSpec):
+    """The train step placed on ``mesh``: returns ``(step, astate,
+    st_shard, bshard)`` as the JAX function does, ``astate`` the abstract
+    state, ``st_shard`` and ``bshard`` placement trees.  ``step(state,
+    batch)`` takes the state and the batch as DTensors (redistributed
+    where placed otherwise) or as full tensors, the same on every rank
+    (distributed without communication), and returns the new state with
+    ``st_shard``'s placements (JAX's ``out_shardings``) and the metrics
+    as plain tensors.  Nothing is compiled (the name is kept so that a
+    reader finds the JAX counterpart), nor is the given state donated:
+    the step is functional."""
+    astate = abstract_train_state(cfg, hyper)
+    st_shard = _live(state_shardings(cfg, mesh, astate), mesh)
+    bshard = _live({k: shd.placements(v, mesh) for k, v in
+                    batch_specs(cfg, mesh, "train", shape).items()}, mesh)
+    step_fn = build_train_step(cfg, hyper, mesh)
+
+    def step(state: TrainState, batch):
+        state = _place(state, st_shard, mesh)
+        batch = _place({k: _rows_by_microbatch(batch[k], bshard[k], mesh,
+                                               hyper.microbatches)
+                        for k in bshard}, bshard, mesh)
+        new, metrics = step_fn(state, batch)
+        return _place(new, st_shard, mesh), _full(metrics)
+
+    return step, astate, st_shard, bshard
 
 
 # -- serving ------------------------------------------------------------------------
@@ -256,3 +440,67 @@ def cache_shardings(cfg: ArchConfig, mesh, caches, rules=None):
         return shd.placements((), mesh)
 
     return tree_map_with_path(spec_for, caches)
+
+
+def jit_decode_step(cfg: ArchConfig, mesh, shape: ShapeSpec,
+                    dtype=torch.bfloat16, cache_update: str = "dus",
+                    replicate_params_over_data: bool = False):
+    """One-token serve step against a ``shape.seq_len`` KV cache, placed
+    on ``mesh``: returns ``(step, aparams, acaches, (pshard, cshard,
+    bshard))`` as the JAX function does.  ``step(params, caches, tokens,
+    pos)`` places its inputs as `jit_train_step`'s step does and returns
+    (logits as a DTensor, new caches with ``cshard``'s placements).
+    ``replicate_params_over_data``: serving holds no optimizer state, so
+    parameters need not be FSDP-sharded over "data"; replicated there,
+    no decoded token gathers them.  Nothing is compiled."""
+    rules = arch_rules(cfg, shape, mesh)
+    if replicate_params_over_data:
+        rules = {**rules, "embed": None}
+    rules = _live_rules(rules, mesh)
+    aparams = lm.abstract_params(cfg, dtype)
+    pshard = shd.param_sharding(aparams, mesh, rules)
+    acaches = lm.init_caches(cfg, shape.global_batch, shape.seq_len, dtype,
+                             device="meta")
+    cshard = cache_shardings(cfg, mesh, acaches, rules=rules)
+    bshard = _live({k: shd.placements(v, mesh) for k, v in
+                    batch_specs(cfg, mesh, "decode", shape).items()}, mesh)
+
+    def step(params, caches, tokens, pos):
+        params = _fsdp_gathered(_place(params, pshard, mesh), mesh, rules)
+        caches = _place(caches, cshard, mesh)
+        tokens = _place(tokens, bshard["tokens"], mesh)
+        with shd.use_mesh_rules(mesh, rules):
+            logits, new = lm.decode_step(cfg, params, caches, tokens,
+                                         int(pos), dtype,
+                                         cache_update=cache_update)
+        return logits, _place(new, cshard, mesh)
+
+    return step, aparams, acaches, (pshard, cshard, bshard)
+
+
+def jit_prefill(cfg: ArchConfig, mesh, shape: ShapeSpec,
+                dtype=torch.bfloat16, impl: str = "ref",
+                replicate_params_over_data: bool = False):
+    """The prefill placed on ``mesh``: returns ``(step, aparams, (pshard,
+    bshard))`` as the JAX function does; ``step(params, batch)`` places
+    its inputs as `jit_train_step`'s step does and returns the last
+    position's logits as a DTensor.  With ``impl="kernel"`` every
+    attention and SSD scan runs the CUDA kernel on each rank's block
+    (`models.attention`, `models.mamba2`).  Nothing is compiled."""
+    rules = arch_rules(cfg)
+    if replicate_params_over_data:     # serving: no optimizer state
+        rules = {**rules, "embed": None}
+    rules = _live_rules(rules, mesh)
+    aparams = lm.abstract_params(cfg, dtype)
+    pshard = shd.param_sharding(aparams, mesh, rules)
+    bshard = _live({k: shd.placements(v, mesh) for k, v in
+                    batch_specs(cfg, mesh, "prefill").items()}, mesh)
+    dev = _mesh_device(mesh)
+
+    def step(params, batch):
+        params = _fsdp_gathered(_place(params, pshard, mesh), mesh, rules)
+        batch = _place({k: batch[k] for k in bshard}, bshard, mesh)
+        with shd.use_mesh_rules(mesh, rules):
+            return lm.prefill(cfg, params, batch, dtype, impl, device=dev)
+
+    return step, aparams, (pshard, bshard)

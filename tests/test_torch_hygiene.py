@@ -68,8 +68,10 @@ def test_public_surface_is_a_subset_of_the_jax_package():
 # carriers, the plain versions of the SSD kernel's own function and of its
 # four stages, the plain emulation of the bf16 attention path and the
 # triad's device timing and its refused tile, the card's shared memory
-# beside the TPU's VMEM, and a spec's DTensor placements (JAX's
-# NamedSharding)
+# beside the TPU's VMEM, a spec's DTensor placements (JAX's
+# NamedSharding), the DTensor helpers GSPMD needs none of (placing and
+# gathering a tree, running a function on each rank's blocks, reducing a
+# pending sum), and the collective count that stands for the HLO parser
 EXTRA = {"repro_torch.models.lm": {"params_from_numpy", "caches_from_numpy"},
          "repro_torch.kernels.ssd_scan.ref": {
              "ssd_scan_grid_ref", "ssd_chunk_cb", "ssd_chunk_states",
@@ -79,7 +81,10 @@ EXTRA = {"repro_torch.models.lm": {"params_from_numpy", "caches_from_numpy"},
          "repro_torch.kernels.cache_probe.kernel": {"triad_device_seconds",
                                                     "TileError"},
          "repro_torch.tpuprobe.vmem_probe": {"NOMINAL_SMEM"},
-         "repro_torch.distributed.sharding": {"placements"},
+         "repro_torch.distributed.sharding": {
+             "placements", "distribute_tree", "gather_tree", "block_offset",
+             "on_blocks", "reduce_partial"},
+         "repro_torch.launch.roofline": {"count_collectives"},
          "repro_torch.train.train_step": {"train_state_from_numpy"}}
 
 

@@ -24,6 +24,15 @@ but ``wall_s`` and ``guests_per_sec``.  The goldens:
                                1, 4 and 8 guests) and ``choose_shard`` (8,
                                64 and 256 guests) on every platform, under
                                the JAX cost constants
+  sharded_steps                JAX's sharded steps on a (2, 2) ("data",
+                               "model") mesh with ``Auto`` axes, in a
+                               process of its own with four host
+                               devices: ``jit_train_step`` losses, grad
+                               norms and ``parse_collectives(...).by_kind``
+                               for each `SHARDED_CASES` case (1
+                               microbatch of 2 rows; 2 of 2 with
+                               ``sequence_parallel``), and
+                               ``jit_prefill``'s logits sums (4 rows)
   pod_loop                     the pod backend's closed loop:
                                ``run_pod_loop("on")`` and ``("off")`` at
                                seed 0, ``PodFleetSim(intervals=12,
@@ -45,6 +54,8 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
+import subprocess
 import sys
 from pathlib import Path
 
@@ -56,6 +67,22 @@ WALL_FIELDS = ("wall_s", "guests_per_sec")
 FLEET_FLOAT_FIELDS = ("throughput", "per_workload", "serve_p50_ms",
                       "serve_p99_ms")
 FLEET_RTOL = 1e-5
+# the sharded-step cases: (arch, moe dispatch), each run at (microbatches,
+# sequence_parallel) in SHARDED_STEPS with f32 compute and no remat, from
+# `make_train_state(PRNGKey(0))` and `make_batch(DataConfig(seed=1), step
+# 0)` at SHARDED_SHAPE (seq, batch); a step of nm microbatches takes the
+# batch's first `nm * SHARDED_MICRO` rows, so both steps run microbatches
+# of one shape (one compiled reference, one DTensor rule cache)
+SHARDED_CASES = (("qwen1p5_0p5b", "gshard"), ("qwen2_moe_a2p7b", "gshard"),
+                 ("qwen2_moe_a2p7b", "sorted"), ("zamba2_2p7b", "gshard"))
+SHARDED_STEPS = ((1, False), (2, True))
+SHARDED_SHAPE = (16, 4)
+SHARDED_MICRO = 2
+
+
+def sharded_rows(data: dict, nm: int) -> dict:
+    """The rows of ``data`` a step of ``nm`` microbatches takes."""
+    return {k: v[:nm * SHARDED_MICRO] for k, v in data.items()}
 SHARD_GUESTS = (8, 64, 256)
 TUNE_GUESTS = (1, 4, 8)
 
@@ -155,6 +182,83 @@ def golden_pod_loop() -> dict:
             "export": json.loads(json.dumps(export, sort_keys=True))}
 
 
+def sharded_inputs(arch: str):
+    """(JAX config, JAX train state, numpy batch) of a sharded-step case,
+    as the golden and the tests build them."""
+    import jax
+    from repro.configs.base import ShapeSpec, get_config, reduced_config
+    from repro.data import pipeline
+    from repro.train import train_step as jts
+    cfg = reduced_config(get_config(arch))
+    state = jax.jit(lambda k: jts.make_train_state(cfg, jts.TrainHyper(),
+                                                   k))(jax.random.PRNGKey(0))
+    seq, batch = SHARDED_SHAPE
+    data = pipeline.make_batch(pipeline.DataConfig(seed=1), cfg,
+                               ShapeSpec("sharded", seq, batch, "train"), 0)
+    return cfg, state, data
+
+
+def _sharded_steps() -> dict:
+    """The golden's content; needs four JAX devices (see
+    `golden_sharded_steps`)."""
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+    from jax.sharding import AxisType
+    from repro.configs.base import ShapeSpec
+    from repro.launch.roofline import parse_collectives
+    from repro.train import train_step as jts
+    mesh = jax.make_mesh((2, 2), ("data", "model"),
+                         axis_types=(AxisType.Auto,) * 2)
+    seq, batch = SHARDED_SHAPE
+    out = {}
+    for arch, moe_impl in SHARDED_CASES:
+        cfg, state, data = sharded_inputs(arch)
+        # numpy, so that each step gets buffers of its own to donate
+        state = jax.tree_util.tree_map(np.asarray, state)
+        case = {}
+        for nm, sp in SHARDED_STEPS:
+            hyper = jts.TrainHyper(microbatches=nm, sequence_parallel=sp,
+                                   remat="none", compute_dtype=jnp.float32,
+                                   moe_impl=moe_impl)
+            shape = ShapeSpec("sharded", seq, nm * SHARDED_MICRO, "train")
+            step, _, st_shard, bshard = jts.jit_train_step(cfg, mesh, hyper,
+                                                           shape)
+            placed = jax.device_put(state, st_shard)
+            b = {k: jax.device_put(v, bshard[k])
+                 for k, v in sharded_rows(data, nm).items() if k in bshard}
+            coll = parse_collectives(step.lower(placed, b).compile()
+                                     .as_text())
+            _, metrics = step(placed, b)
+            case[f"nm{nm}_sp{int(sp)}"] = {
+                "loss": float(metrics["loss"]),
+                "grad_norm": float(metrics["grad_norm"]),
+                "collectives_by_kind": coll.by_kind}
+        prefill, _, (pshard, bshard) = jts.jit_prefill(
+            cfg, mesh, ShapeSpec("sharded", seq, batch, "prefill"),
+            jnp.float32, "ref")
+        logits = np.asarray(prefill(
+            jax.device_put(state.params, pshard),
+            {"tokens": jax.device_put(data["tokens"], bshard["tokens"])}))
+        case["prefill"] = {"logits_sum": float(logits.sum()),
+                           "logits_abs_sum": float(np.abs(logits).sum())}
+        out[f"{arch}_{moe_impl}"] = case
+    return out
+
+
+def golden_sharded_steps() -> dict:
+    """Runs `_sharded_steps` in a process of its own that sets
+    ``XLA_FLAGS=--xla_force_host_platform_device_count=4`` before JAX is
+    imported."""
+    env = {**os.environ, "JAX_PLATFORMS": "cpu",
+           "XLA_FLAGS": "--xla_force_host_platform_device_count=4"}
+    proc = subprocess.run([sys.executable, __file__, "--sharded-child"],
+                          env=env, capture_output=True, text=True)
+    if proc.returncode:
+        raise RuntimeError(proc.stderr[-4000:])
+    return json.loads(proc.stdout.splitlines()[-1])
+
+
 def goldens() -> dict:
     """name -> thunk writing that golden's content."""
     from repro.core.platforms import list_platforms
@@ -166,6 +270,7 @@ def goldens() -> dict:
     g["fleet_attack"] = golden_fleet_attack
     g["tune"] = golden_tune
     g["pod_loop"] = golden_pod_loop
+    g["sharded_steps"] = golden_sharded_steps
     return g
 
 
@@ -174,6 +279,9 @@ def path_of(name: str, out: Path = DATA) -> Path:
 
 
 def main(argv=None) -> int:
+    if (argv if argv is not None else sys.argv[1:]) == ["--sharded-child"]:
+        print(json.dumps(_sharded_steps(), sort_keys=True))
+        return 0
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", type=Path, default=DATA)
     ap.add_argument("names", nargs="*")
