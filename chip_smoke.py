@@ -36,7 +36,7 @@ Four phases, in order; any failure exits non-zero:
              48, 49 and 227 KiB over 10,007 rows, the 228 KiB tile
              refused with cudaErrorInvalidValue and a fitting tile equal
              after it;
-3. main    — eight paths, each check with the launch counters set to 0
+3. main    — nine paths, each check with the launch counters set to 0
              just before it and read just after:
              (i) `run_cachex("skylake_sp")`: the report must equal
              tests/data/torch_golden_run_cachex_skylake_sp.json, the engine
@@ -159,6 +159,20 @@ Four phases, in order; any failure exits non-zero:
              4 tokens of `jit_decode_step` within 1e-5 of
              `lm.decode_step`; each step's wall beside the unsharded one
              and its `roofline.count_collectives` (no byte on one rank);
+             (ix) the dry run (`launch.dryrun`), each cell as rank 0 of
+             a fake 256- or 512-rank process group on the card, starting
+             with at most 1 GiB allocated: full-width qwen2.5-14b
+             `train_4k` on the 16 x 16 and 2 x 16 x 16 meshes (2
+             microbatches), zamba2-2.7b `prefill_32k` and qwen2.5-14b
+             `decode_32k`, each ``ok`` with argument bytes equal to the
+             JAX dry run's (tests/data/torch_golden_dryrun.json) and a
+             measured per-device peak under `HBM_BYTES`, printed beside
+             JAX's; the prefill's `flash_attention` and `ssd_scan`
+             launched on the rank's block (9 and 216, no plain call);
+             qwen2.5-14b `long_500k` skipped with JAX's reason; then
+             `hillclimb.run` of qwen2.5-14b `train_4k` under
+             `seqpar+mb2`, its top collectives printed with the frames
+             that issued them;
 4. times   — times each kernel with CUDA events at the main path's shapes
              beside its plain version, its bound and the PyTorch library
              call where one exists (the engine also at the Table 1
@@ -2633,6 +2647,144 @@ def sharded_main_path(smoke, card):
     return res
 
 
+# -- path (ix): the dry run, one rank of a fake 256- or 512-rank group ----------
+
+# What earlier phases may leave allocated when the path starts, as (iii)
+DRYRUN_START_MAX_BYTES = 1 << 30
+DRYRUN_GOLDEN = ROOT / "tests" / "data" / "torch_golden_dryrun.json"
+# The full-width cells of the golden the path runs, (arch, shape,
+# multi_pod, microbatches): the train cells at 2 microbatches
+# (tests/torch_goldens.py: a full qwen2.5-14b step at the default 8 takes
+# about 4 minutes of host time on the card, mostly the plain attention's
+# chunk loop), the prefill and the decode at their defaults.
+DRYRUN_RUN = (("qwen2.5-14b", "train_4k", False, 2),
+              ("qwen2.5-14b", "train_4k", True, 2),
+              ("zamba2-2.7b", "prefill_32k", False, None),
+              ("qwen2.5-14b", "decode_32k", False, None))
+DRYRUN_SKIP = ("qwen2.5-14b", "long_500k", False)
+
+
+def dryrun_main_path(smoke, card):
+    """Path (ix): `launch.dryrun` on the card, each cell as rank 0 of a
+    fake 256- or 512-rank group of its own, after (viii): full qwen2.5-14b
+    `train_4k` on both meshes (`compile_cell` at 2 microbatches),
+    zamba2-2.7b `prefill_32k` and qwen2.5-14b `decode_32k` (`run_cell`)
+    must come back ``ok`` with the JAX dry run's argument bytes (the
+    golden; for the train cells also its record at the default 8
+    microbatches: the state and the batch do not depend on them) and a
+    measured per-device peak under `HBM_BYTES`, printed beside JAX's at
+    the same microbatches; the prefill must launch `flash_attention` and
+    `ssd_scan` on the rank's block, 9 and 54 x 4 times, with no plain call
+    (the counters set to 0 just before the cell, read just after);
+    `long_500k` is skipped with JAX's reason; then
+    `hillclimb.run(qwen2.5-14b, train_4k, seqpar+mb2)` with its top
+    collectives.  The path must start with at most 1 GiB allocated."""
+    torch = smoke.torch
+    from repro_torch import _build
+    from repro_torch.configs.base import SHAPE_BY_NAME, get_config
+    from repro_torch.kernels.ssd_scan.kernel import LAUNCHES_PER_CALL
+    from repro_torch.launch import dryrun, hillclimb
+    from repro_torch.launch.mesh import HBM_BYTES
+    from repro_torch.train.train_step import TrainHyper
+    tg = goldens()
+    golden = json.loads(DRYRUN_GOLDEN.read_text())
+    expected = {"flash_attention": PREFILL_CALLS["flash_attention"],
+                "ssd_scan": PREFILL_CALLS["ssd_scan"] * LAUNCHES_PER_CALL}
+    t_phase = time.perf_counter()
+    start = torch.cuda.memory_allocated()
+    print(f"dryrun: {start / 2**30:.3f} GiB allocated on the card before "
+          f"path (ix) (at most {DRYRUN_START_MAX_BYTES / 2**30:.0f} GiB)")
+    if start > DRYRUN_START_MAX_BYTES:
+        raise AssertionError(f"dryrun: {start / 2**30:.2f} GiB still "
+                             f"allocated from earlier phases")
+    res = {"cells": {}, "card": card}
+    for arch, shape, mp, nm in DRYRUN_RUN:
+        name = tg.dryrun_cell_name(arch, shape, mp, nm)
+        want = golden["full"][name]
+        default = golden["full"][tg.dryrun_cell_name(arch, shape, mp)]
+        _build.reset_counters()
+        t0 = time.perf_counter()
+        if nm is None:
+            rec = dryrun.run_cell(arch, shape, mp)
+        else:
+            rec = dryrun.compile_cell(
+                get_config(arch), SHAPE_BY_NAME[shape], mp,
+                TrainHyper(microbatches=nm, compress_cross_pod=mp))
+        wall = time.perf_counter() - t0
+        launches = {k: v for k, v in _build.LAUNCHES.items() if v}
+        plain = {k: v for k, v in _build.PLAIN_CALLS.items() if v}
+        res["cells"][name] = {"record": rec, "wall_s": wall,
+                              "launches": launches, "plain_calls": plain}
+        _free(smoke)
+        if rec["status"] != "ok":
+            raise AssertionError(f"dryrun: {name}: {rec}")
+        ma, jma = rec["memory_analysis"], want["memory_analysis"]
+        print(f"dryrun: {name} on a fake group of {rec['n_chips']} ranks: "
+              f"ok in {wall:.1f} s (lower {rec['lower_s']} s, the call "
+              f"{rec['compile_s']} s); argument bytes "
+              f"{ma['argument_bytes']:,} (JAX {jma['argument_bytes']:,}, at "
+              f"its default microbatches "
+              f"{default['memory_analysis']['argument_bytes']:,}); "
+              f"per-device peak {ma['per_device_bytes'] / 2**30:.2f} GiB "
+              f"measured (temp {ma['temp_bytes'] / 2**30:.2f}, outputs "
+              f"{ma['output_bytes'] / 2**30:.2f}) beside JAX's "
+              f"{jma['per_device_bytes'] / 2**30:.2f} GiB (temp "
+              f"{jma['temp_bytes'] / 2**30:.2f}, outputs "
+              f"{jma['output_bytes'] / 2**30:.2f}, alias "
+              f"{jma['alias_bytes'] / 2**30:.2f}), HBM_BYTES "
+              f"{HBM_BYTES / 2**30:.0f} GiB; rank FLOPs "
+              f"{rec['cost_analysis_raw']['flops']:.4g} (analytic "
+              f"{rec['analytic']['flops_per_device']:.4g}, JAX's XLA count "
+              f"{want['cost_analysis_raw']['flops']:.4g}); collectives "
+              f"{rec['collectives']['ops']} ops {rec['collectives']['by_kind']}"
+              f" beside JAX's {want['collectives']['by_kind']}; launches "
+              f"{launches}, plain calls {plain} on {card}")
+        if ma["argument_bytes"] != jma["argument_bytes"] \
+                or ma["argument_bytes"] != \
+                default["memory_analysis"]["argument_bytes"] \
+                or not ma["per_device_bytes"] < HBM_BYTES \
+                or ma["temp_bytes"] < 0:
+            raise AssertionError(f"dryrun: {name}: {ma} against JAX's {jma}")
+        if shape.startswith("prefill") and (
+                rec["kernel_launches"] != expected or rec["plain_calls"]
+                or launches != expected or plain):
+            raise AssertionError(f"dryrun: {name}: launched "
+                                 f"{rec['kernel_launches']} (plain "
+                                 f"{rec['plain_calls']}), counters "
+                                 f"{launches} (plain {plain}); expected "
+                                 f"{expected} and no plain call")
+    arch, shape, mp = DRYRUN_SKIP
+    rec = dryrun.run_cell(arch, shape, mp)
+    want = golden["skips"][tg.dryrun_cell_name(arch, shape, mp)]
+    print(f"dryrun: {tg.dryrun_cell_name(arch, shape, mp)}: "
+          f"{rec['status']} ({rec.get('reason')}); JAX: {want['status']} "
+          f"({want['reason']})")
+    if rec != want:
+        raise AssertionError(f"dryrun: {rec} != JAX's {want}")
+    res["skip"] = rec
+    t0 = time.perf_counter()
+    hc = hillclimb.run(*tg.HILLCLIMB_FULL)
+    res["hillclimb"] = {"result": hc, "wall_s": time.perf_counter() - t0}
+    _free(smoke)
+    jhc = golden["hillclimb_full"]
+    print(f"dryrun: hillclimb {tg.HILLCLIMB_FULL} in "
+          f"{res['hillclimb']['wall_s']:.1f} s: mem/dev "
+          f"{hc['mem_dev'] / 2**30:.2f} GiB measured (JAX "
+          f"{jhc['mem_dev'] / 2**30:.2f}), collectives "
+          f"{hc['collective_bytes']:,} bytes (JAX "
+          f"{jhc['collective_bytes']:,}) on {card}")
+    if set(hc) != set(jhc) or not hc["mem_dev"] < HBM_BYTES \
+            or not hc["collective_bytes"]:
+        raise AssertionError(f"dryrun: hillclimb {hc}")
+    res["left_allocated_bytes"] = torch.cuda.memory_allocated() - start
+    res["s"] = time.perf_counter() - t_phase
+    print(f"dryrun: path (ix) {res['s']:.1f} s, "
+          f"{start / 2**30:.3f} GiB allocated before it, "
+          f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB after it on "
+          f"{card}")
+    return res
+
+
 def cost_model_path(smoke, card, out):
     """Phase 3 (vii): the card's memory against `launch.mesh.HBM_BYTES`,
     `roofline.count_params` beside the parameters each model phase built
@@ -3896,6 +4048,10 @@ def main() -> int:
     sharded = sharded_main_path(smoke, card)
     out["phases"]["sharded_s"] = sharded["s"]
     out["sharded"] = sharded
+
+    dry = dryrun_main_path(smoke, card)
+    out["phases"]["dryrun_s"] = dry["s"]
+    out["dryrun"] = dry
 
     # -- 4. times -----------------------------------------------------------------
     # "ms" is device time per launch (Smoke.device_ms), "plain_ms" the

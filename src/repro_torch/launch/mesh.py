@@ -7,7 +7,8 @@ that is already running, one process a card:
   * `make_host_mesh` — ``(world // model, model)`` over whatever ranks
     run (tests, examples; on one card its world size is 1),
   * `make_production_mesh` — ``(16, 16)`` ("data", "model") = 256 ranks,
-    or ``(2, 16, 16)`` ("pod", "data", "model") = 512; any other world
+    or ``(2, 16, 16)`` ("pod", "data", "model") = 512, on the device the
+    caller names (the dry run's fake group runs either); any other world
     size raises, with no smaller fallback.
 """
 
@@ -31,10 +32,12 @@ def _running_group(what: str) -> str:
     return "cuda" if dist.get_backend() == "nccl" else "cpu"
 
 
-def make_production_mesh(*, multi_pod: bool = False) -> DeviceMesh:
+def make_production_mesh(*, multi_pod: bool = False,
+                         device: str = "cuda") -> DeviceMesh:
     """The production mesh over the running default group: ``(16, 16)``
     with dims ("data", "model"), or ``(2, 16, 16)`` with ("pod", "data",
-    "model") for ``multi_pod``, on CUDA devices.  Raises ``RuntimeError``
+    "model") for ``multi_pod``, on ``device`` ("cuda" unless the caller
+    asks for "cpu"; nothing infers it).  Raises ``RuntimeError``
     naming the world size when the group does not have exactly 256 (512)
     ranks, or when no group runs."""
     shape = (2, 16, 16) if multi_pod else (16, 16)
@@ -46,7 +49,7 @@ def make_production_mesh(*, multi_pod: bool = False) -> DeviceMesh:
         raise RuntimeError(f"make_production_mesh: the {shape} mesh needs "
                            f"{need} ranks, the running group has world "
                            f"size {world}")
-    return init_device_mesh("cuda", shape, mesh_dim_names=axes)
+    return init_device_mesh(device, shape, mesh_dim_names=axes)
 
 
 def make_host_mesh(model: int = 1) -> DeviceMesh:

@@ -32,6 +32,8 @@ torch step issues as it runs, into the JAX module's `CollectiveStats`.
 from __future__ import annotations
 
 import dataclasses
+import os
+import sys
 from typing import Dict, List, Optional, Tuple
 
 import torch
@@ -290,13 +292,16 @@ class CollectiveStats:
     normalises bf16 dots to f32 before partitioning, which DTensor does
     not.  ``calls`` lists each collective as ``(kind, group ranks, bytes,
     shape, dtype)``, the counterpart of the HLO lines
-    `parse_collectives` reads."""
+    `parse_collectives` reads; ``sites``, filled only when
+    `count_collectives` is asked for them, is the parallel list of where
+    each was issued (the HLO line's ``op_name``)."""
     total_bytes: int
     by_kind: Dict[str, int]
     by_group_size: Dict[int, int]
     ops: int
     tpu_corrected_bytes: int = 0
     calls: List[Tuple] = dataclasses.field(default_factory=list)
+    sites: List[str] = dataclasses.field(default_factory=list)
 
 
 def _collective_kinds():
@@ -315,7 +320,31 @@ def _collective_kinds():
     return kinds
 
 
-def count_collectives(fn, *args, **kwargs):
+_HERE = os.path.abspath(__file__)
+_PACKAGE = os.path.dirname(os.path.dirname(_HERE))
+
+
+def _site() -> str:
+    """Where a collective is issued: in a backward pass ``"backward of
+    <node>"``, the autograd node running (autograd runs a CUDA backward on
+    a thread of its own, with no frame of the port); else ``"file:line
+    function"`` of the innermost frame of the port's package outside this
+    module (paths relative to the package), or "?"."""
+    node = torch._C._current_autograd_node()
+    if node is not None:
+        return f"backward of {node.name()}"
+    f = sys._getframe(1)
+    while f is not None:
+        path = os.path.abspath(f.f_code.co_filename)
+        if path.startswith(_PACKAGE + os.sep) and path != _HERE:
+            return (f"{os.path.relpath(path, _PACKAGE)}:{f.f_lineno} "
+                    f"{f.f_code.co_name}")
+        f = f.f_back
+    return "?"
+
+
+def count_collectives(fn, *args, sites: bool = False, on_local=None,
+                      **kwargs):
     """Run ``fn(*args, **kwargs)`` once and count the collectives it
     issues on this rank: returns ``(out, CollectiveStats)``.  Each
     ``_c10d_functional`` collective (and DTensor's ``shard_dim_alltoall``)
@@ -327,7 +356,12 @@ def count_collectives(fn, *args, **kwargs):
     sees the collectives they lower to), as
     ``torch.distributed.tensor.debug.CommDebugMode`` does.  A broadcast,
     which has no HLO kind here, is counted under ``"broadcast"``.  On
-    plain tensors it counts nothing."""
+    plain tensors it counts nothing.  With ``sites``, each collective's
+    ``CollectiveStats.sites`` entry is the innermost frame of the port's
+    package that issued it (`_site`).  ``on_local(func, args, kwargs,
+    out)``, if given, is called after each op run on this rank's plain
+    tensors (not on the fake tensors DTensor's sharding propagation runs
+    the global op on)."""
     import torch.distributed as dist
     from torch.distributed.distributed_c10d import _resolve_process_group
     from torch.distributed.tensor import DTensor
@@ -335,6 +369,7 @@ def count_collectives(fn, *args, **kwargs):
 
     kinds = _collective_kinds()
     calls: List[Tuple] = []
+    where: List[str] = []
 
     class _Counter(TorchDispatchMode):
         def __torch_dispatch__(self, func, types, args=(), kwargs=None):
@@ -344,6 +379,9 @@ def count_collectives(fn, *args, **kwargs):
             if any(issubclass(t, DTensor) for t in types):
                 return NotImplemented     # DTensor lowers it first
             out = func(*args, **kwargs)
+            if on_local is not None and all(t is torch.Tensor
+                                            for t in types):
+                on_local(func, args, kwargs, out)
             kind = kinds.get(func._overloadpacket)
             if kind is not None:
                 # the group's name is the op's last string argument (a
@@ -352,10 +390,13 @@ def count_collectives(fn, *args, **kwargs):
                          if isinstance(a, str)][-1]
                 ranks = tuple(dist.get_process_group_ranks(
                     _resolve_process_group(group)))
+                site = _site() if sites else None
                 for t in (out if isinstance(out, (list, tuple)) else [out]):
                     calls.append((kind, ranks,
                                   t.numel() * t.element_size(),
                                   tuple(t.shape), t.dtype))
+                    if sites:
+                        where.append(site)
             return out
 
     with _Counter():
@@ -368,4 +409,5 @@ def count_collectives(fn, *args, **kwargs):
     total = sum(c[2] for c in calls)
     return out, CollectiveStats(total_bytes=total, by_kind=by_kind,
                                 by_group_size=by_gs, ops=len(calls),
-                                tpu_corrected_bytes=total, calls=calls)
+                                tpu_corrected_bytes=total, calls=calls,
+                                sites=where)

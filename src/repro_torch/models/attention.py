@@ -149,15 +149,26 @@ def _attend(q, k, v, cfg: AttnConfig, impl: str) -> torch.Tensor:
                      f"'kernel'")
 
 
-def _attend_on_blocks(q, k, v, cfg: AttnConfig, impl: str):
-    """The backend on each rank's (batch, heads) block of DTensor q, k, v
-    (`shd.on_blocks`): attention is independent per batch row and per
-    head.  Query heads keep the mesh dims their hint gave them; kv heads
-    keep theirs where they match the query heads', else are whole.  Each
-    rank then expands its kv block by the global index of its query
-    heads: local head i is global head ``q_off + i`` and meets kv head
-    ``(q_off + i) // group``, which is local kv head ``... - kv_off``."""
-    mesh = q.device_mesh
+def _head_ways(q) -> int:
+    """The ranks DTensor q's head dim (2) is split over."""
+    ways = 1
+    for m, p in enumerate(q.placements):
+        if p == Shard(2):
+            ways *= q.device_mesh.size(m)
+    return ways
+
+
+def _block_placements(q, k, cfg: AttnConfig):
+    """``(qpl, kpl, q_off, kv_off)`` of DTensor q (B, S, H, D) and k (B,
+    S, Hkv, D) run on each rank's (batch, heads) block: query heads keep
+    the mesh dims their hint gave them; kv heads keep theirs where they
+    match the query heads', else are whole; anything else (a sequence
+    sharded cache) is whole.  ``q_off`` and ``kv_off`` are the global
+    index of the rank's first query and kv head.  Kv heads split over
+    more ranks than there are (qwen2.5-14b's 8 cached kv heads over 16
+    "model" ranks) are whole: a rank's query heads meet another rank's
+    kv head."""
+    even = cfg.n_kv_heads % _head_ways(q) == 0
     qpl, kpl = [], []
     for pq, pk in zip(q.placements, k.placements):
         if pq == Shard(0):
@@ -165,26 +176,42 @@ def _attend_on_blocks(q, k, v, cfg: AttnConfig, impl: str):
             kpl.append(pq)
         elif pq == Shard(2):
             qpl.append(pq)
-            kpl.append(pq if pk == Shard(2) else Replicate())
+            kpl.append(pq if pk == Shard(2) and even else Replicate())
         else:
             qpl.append(Replicate())
             kpl.append(Replicate())
+    mesh = q.device_mesh
+    return (qpl, kpl, shd.block_offset(qpl, mesh, 2, cfg.n_heads),
+            shd.block_offset(kpl, mesh, 2, cfg.n_kv_heads))
+
+
+def _kv_for_heads(kl, vl, q_off: int, kv_off: int, hl: int, group: int):
+    """A rank's kv block narrowed to what its ``hl`` query heads from
+    global head ``q_off`` meet: ``(k, v, n)``, ``n`` kv heads each met by
+    ``hl // n`` consecutive query heads.  Local query head i is global
+    head ``q_off + i`` and meets kv head ``(q_off + i) // group``, which
+    is local kv head ``... - kv_off``."""
+    if q_off % group == 0 and hl % group == 0 or group % hl == 0:
+        # whole groups (or one group's share): a range of kv heads
+        lo, n = q_off // group - kv_off, max(1, hl // group)
+        return kl.narrow(2, lo, n), vl.narrow(2, lo, n), n
+    idx = (q_off + torch.arange(hl, device=kl.device)) // group - kv_off
+    return kl.index_select(2, idx), vl.index_select(2, idx), hl
+
+
+def _attend_on_blocks(q, k, v, cfg: AttnConfig, impl: str):
+    """The backend on each rank's (batch, heads) block of DTensor q, k, v
+    (`shd.on_blocks`, `_block_placements`): attention is independent per
+    batch row and per head.  Each rank expands its kv block by the global
+    index of its query heads (`_kv_for_heads`)."""
+    qpl, kpl, q_off, kv_off = _block_placements(q, k, cfg)
     group = cfg.n_heads // cfg.n_kv_heads
-    q_off = shd.block_offset(qpl, mesh, 2, cfg.n_heads)
-    kv_off = shd.block_offset(kpl, mesh, 2, cfg.n_kv_heads)
 
     def local(ql, kl, vl):
         hl = ql.shape[2]
-        if q_off % group == 0 and hl % group == 0 or group % hl == 0:
-            # whole groups (or one group's share): the rank's kv heads,
-            # expanded as on one device
-            lo, n = q_off // group - kv_off, max(1, hl // group)
-            kl, vl = (_expand_kv(t.narrow(2, lo, n), hl) for t in (kl, vl))
-        else:
-            idx = (q_off + torch.arange(hl, device=ql.device)) // group \
-                - kv_off
-            kl, vl = kl.index_select(2, idx), vl.index_select(2, idx)
-        return _attend(ql, kl, vl, cfg, impl)
+        kl, vl, _ = _kv_for_heads(kl, vl, q_off, kv_off, hl, group)
+        return _attend(ql, _expand_kv(kl, hl), _expand_kv(vl, hl), cfg,
+                       impl)
 
     return shd.on_blocks(local, (qpl, kpl, kpl), qpl, q, k, v)
 
@@ -221,25 +248,59 @@ def init_kv_cache(batch: int, max_len: int, cfg: AttnConfig,
 def _write_at(cache: torch.Tensor, new: torch.Tensor, pos: int):
     """A copy of ``cache`` (B, Smax, Hkv, D) holding ``new`` (B, 1, Hkv, D)
     at sequence position ``pos``.  On a DTensor each rank writes into its
-    own block of the copy (`shd.on_blocks`), the one whose sequence range
-    holds ``pos``: DTensor's ``aten.copy_`` into a slice of a cache
-    sharded along its sequence writes the slice of every rank's block
-    (wrong values, no error), so the write is placed explicitly."""
+    own block of the copy, the one whose sequence range holds ``pos``:
+    DTensor's ``aten.copy_`` into a slice of a cache sharded along its
+    sequence writes the slice of every rank's block (wrong values, no
+    error), so the write is placed explicitly.  The copy keeps the
+    cache's global shape, which `local_map` would take to be the block
+    times the ways: wrong for kv heads split unevenly (qwen2.5-14b's 8
+    over 16 "model" ranks)."""
     if not isinstance(cache, DTensor):
         out = cache.clone()
         out[:, pos:pos + 1] = new.to(out.dtype)
         return out
-    cpl = list(cache.placements)
+    mesh, cpl = cache.device_mesh, list(cache.placements)
     npl = [Replicate() if p == Shard(1) else p for p in cpl]
-    off = shd.block_offset(cpl, cache.device_mesh, 1, cache.shape[1])
+    off = shd.block_offset(cpl, mesh, 1, cache.shape[1])
+    out = cache.to_local().clone()
+    if 0 <= pos - off < out.shape[1]:
+        out[:, pos - off:pos - off + 1] = \
+            new.redistribute(mesh, npl).to_local().to(out.dtype)
+    return DTensor.from_local(out, mesh, cpl, run_check=False,
+                              shape=cache.shape, stride=cache.stride())
 
-    def local(c, n):
-        out = c.clone()
-        if 0 <= pos - off < c.shape[1]:
-            out[:, pos - off:pos - off + 1] = n.to(out.dtype)
-        return out
 
-    return shd.on_blocks(local, (cpl, npl), cpl, cache, new)
+def _grouped_decode(q, k, v, n_kv: int, pos: int):
+    """One query position against caches k, v (B, Smax, n_kv, D) up to
+    ``pos``, the query heads of q (B, 1, H, D) grouped per kv head (never
+    expanded): (B, 1, n_kv, H // n_kv, D) in f32."""
+    B, _, H, D = q.shape
+    qg = q.reshape(B, 1, n_kv, H // n_kv, D).float()
+    kf = k.float()
+    vf = v.float()
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, kf) * (D ** -0.5)
+    mask = (torch.arange(kf.shape[1], device=q.device)
+            <= pos)[None, None, None, None, :]
+    s = torch.where(mask, s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhgqk,bkhd->bqhgd", p, vf)
+
+
+def _decode_on_blocks(q, k, v, cfg: AttnConfig, pos: int):
+    """`_grouped_decode` on each rank's (batch, heads) block (B_l, 1, H_l,
+    D), for query heads split over more ranks than there are kv heads:
+    DTensor's ``aten.view`` refuses to group such heads per kv head
+    (uneven unflatten), so each rank groups its own heads against the kv
+    heads they meet (`_kv_for_heads`)."""
+    qpl, kpl, q_off, kv_off = _block_placements(q, k, cfg)
+    group = cfg.n_heads // cfg.n_kv_heads
+
+    def local(ql, kl, vl):
+        Bl, _, hl, D = ql.shape
+        kl, vl, n = _kv_for_heads(kl, vl, q_off, kv_off, hl, group)
+        return _grouped_decode(ql, kl, vl, n, pos).reshape(Bl, 1, hl, D)
+
+    return shd.on_blocks(local, (qpl, kpl, kpl), qpl, q, k, v)
 
 
 def attention_decode(params, cfg: AttnConfig, x: torch.Tensor, cache,
@@ -269,17 +330,10 @@ def attention_decode(params, cfg: AttnConfig, x: torch.Tensor, cache,
         raise ValueError(f"cache_update {cache_update!r}: expected 'dus' "
                          f"or 'blend'")
 
-    Hkv = cfg.n_kv_heads
-    group = cfg.n_heads // Hkv
-    qg = q.reshape(B, 1, Hkv, group, cfg.head_dim).float()
-    kf = k_cache.float()
-    vf = v_cache.float()
-    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, kf) * (cfg.head_dim ** -0.5)
-    mask = (torch.arange(kf.shape[1], device=x.device)
-            <= pos)[None, None, None, None, :]
-    s = torch.where(mask, s, NEG_INF)
-    p = torch.softmax(s, dim=-1)
-    out = torch.einsum("bhgqk,bkhd->bqhgd", p, vf)
+    if isinstance(q, DTensor) and cfg.n_kv_heads % _head_ways(q):
+        out = _decode_on_blocks(q, k_cache, v_cache, cfg, pos)
+    else:
+        out = _grouped_decode(q, k_cache, v_cache, cfg.n_kv_heads, pos)
     # one (B, H*D) x (H*D, d) product, as torch.matmul folds the (B, 1,
     # H*D) one on a plain tensor (a DTensor's strides for the unit dim keep
     # matmul from folding it, and its batched product rounds otherwise)

@@ -234,6 +234,32 @@ def mask_vocab_pad(cfg: ArchConfig, logits: torch.Tensor) -> torch.Tensor:
 
 # -- forward blocks ---------------------------------------------------------------
 
+def _whole_seq(h):
+    """``h`` (B, S, D) with its sequence gathered where a DTensor's is
+    split (Megatron-SP's all-gather into a tensor-parallel region), as
+    GSPMD inserts it: torch 2.11's DTensor refuses the flatten a matmul
+    makes of an activation sharded along its sequence (``aten.view``).
+    Anything else as it is."""
+    from torch.distributed.tensor import DTensor, Replicate
+    if not isinstance(h, DTensor) or not any(p.is_shard(1)
+                                             for p in h.placements):
+        return h
+    return h.redistribute(h.device_mesh, [Replicate() if p.is_shard(1) else p
+                                          for p in h.placements])
+
+
+def _like_residual(out, x):
+    """A tensor-parallel region's output ``out`` placed like the residual
+    ``x`` where ``x``'s sequence is split (Megatron-SP's reduce-scatter
+    out of the region, the pair of `_whole_seq`'s all-gather); anything
+    else as it is."""
+    from torch.distributed.tensor import DTensor
+    if not (isinstance(out, DTensor) and isinstance(x, DTensor)
+            and any(p.is_shard(1) for p in x.placements)):
+        return out
+    return out.redistribute(x.device_mesh, x.placements)
+
+
 def _transformer_layer(cfg, p, x, positions, compute_dtype, impl,
                        moe_impl="gshard"):
     """Attention + MLP (SwiGLU; GELU for the encoder) or MoE.  Returns
@@ -241,18 +267,20 @@ def _transformer_layer(cfg, p, x, positions, compute_dtype, impl,
     # Megatron-SP: residuals and norms run sequence-sharded when the rules
     # map "seq_act" to "model" (a no-op otherwise)
     x = shard_hint(x, "batch", "seq_act", "embed_act")
-    h = L.rms_norm(x, p["norm_attn"])
-    x = x + attn.attention_train(p["attn"], attn_config(cfg), h, positions,
-                                 compute_dtype, impl)
+    h = _whole_seq(L.rms_norm(x, p["norm_attn"]))
+    x = x + _like_residual(attn.attention_train(
+        p["attn"], attn_config(cfg), h, positions, compute_dtype, impl), x)
     x = shard_hint(x, "batch", "seq_act", "embed_act")
-    h = L.rms_norm(x, p["norm_mlp"])
+    h = _whole_seq(L.rms_norm(x, p["norm_mlp"]))
     if cfg.family == "moe":
         out, aux = moe_mod.moe_block(p["moe"], moe_config(cfg), h,
                                      compute_dtype, impl=moe_impl)
-        return x + out, aux
+        return x + _like_residual(out, x), aux
     if cfg.family == "encoder":
-        return x + L.mlp_gelu(p["mlp"], h, compute_dtype), None
-    return x + L.mlp_swiglu(p["mlp"], h, compute_dtype), None
+        return x + _like_residual(L.mlp_gelu(p["mlp"], h, compute_dtype),
+                                  x), None
+    return x + _like_residual(L.mlp_swiglu(p["mlp"], h, compute_dtype),
+                              x), None
 
 
 def _mamba_layer(cfg, p, x, compute_dtype, impl):
@@ -505,6 +533,59 @@ def prefill(cfg: ArchConfig, params, batch, compute_dtype=torch.bfloat16,
 
 # -- training forward ------------------------------------------------------------------
 
+def _vocab_split(logits) -> bool:
+    """Whether DTensor ``logits`` has its last (vocab) dim split over a
+    mesh dim of more than one rank."""
+    from torch.distributed.tensor import DTensor
+    return isinstance(logits, DTensor) and any(
+        p.is_shard(logits.ndim - 1) and logits.device_mesh.size(m) > 1
+        for m, p in enumerate(logits.placements))
+
+
+def _logsumexp_vocab(logits):
+    """``logsumexp`` over the last (vocab) dim.  Where the vocab dim is
+    split (`_vocab_split`), vocab-parallel: each rank takes the
+    ``logsumexp`` of its own block (`shd.on_blocks`), the ranks' results
+    lie side by side along the last dim, one entry a rank, and their
+    ``logsumexp`` is the whole one.  DTensor's ``aten.logsumexp`` rule
+    on the logits gathers them whole on every rank, and its backward
+    with them; here it gathers one entry a rank."""
+    if not _vocab_split(logits):
+        return torch.logsumexp(logits, dim=-1)
+    lpl = list(logits.placements)
+    parts = shd.on_blocks(lambda lg: torch.logsumexp(lg, -1, keepdim=True),
+                          (lpl,), lpl, logits)
+    return torch.logsumexp(parts, dim=-1)
+
+
+def _target_logits(logits, targets):
+    """``logits[..., targets]``, (B, S).  Where the vocab dim is split
+    (`_vocab_split`), each rank picks the targets in its own vocab block
+    and gives zeros for the rest, and the ranks' picks sum (``Partial``,
+    then reduced): the backward of DTensor's ``aten.gather`` allocates
+    ``new_zeros`` of the whole logits on every rank (on qwen2.5-14b's
+    train_4k microbatch, (32, 4096, 152064) in f32: 74 GiB a rank)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    if not _vocab_split(logits):
+        tgt = shd.reduce_partial(torch.gather(logits, -1, targets[..., None]))
+        return tgt[..., 0]
+    v = logits.ndim - 1
+    lpl = list(logits.placements)
+    tpl = [p if isinstance(p, Shard) and p.dim < v else Replicate()
+           for p in lpl]
+    opl = [Partial() if p.is_shard(v) else t for p, t in zip(lpl, tpl)]
+    off = shd.block_offset(lpl, logits.device_mesh, v, logits.shape[v])
+
+    def local(lg, t):
+        idx = t.long() - off
+        hit = (idx >= 0) & (idx < lg.shape[-1])
+        pick = torch.gather(lg, -1, idx.clamp(0, lg.shape[-1] - 1)[..., None])
+        return torch.where(hit, pick[..., 0], torch.zeros_like(pick[..., 0]))
+
+    return shd.reduce_partial(shd.on_blocks(local, (lpl, tpl), opl, logits,
+                                            targets))
+
+
 def loss_fn(cfg: ArchConfig, params, batch, compute_dtype=torch.bfloat16,
             impl: str = "ref", remat: str = "full",
             moe_impl: str = "gshard"):
@@ -528,14 +609,14 @@ def loss_fn(cfg: ArchConfig, params, batch, compute_dtype=torch.bfloat16,
     x, aux = backbone(cfg, params, x, positions, compute_dtype, impl, remat,
                       moe_impl)
     logits = mask_vocab_pad(
-        cfg, L.unembed_logits(params["head"], x, compute_dtype))   # f32
+        cfg, L.unembed_logits(params["head"], _whole_seq(x),
+                              compute_dtype))   # f32
     targets = inputs["targets"].long()
     if cfg.family == "vlm":   # only text positions carry loss
         targets = torch.cat([targets.new_zeros(
             (targets.shape[0], cfg.stub_seq)), targets], dim=1)
-    lse = torch.logsumexp(logits, dim=-1)
-    tgt = shd.reduce_partial(torch.gather(logits, -1, targets[..., None]))
-    tgt = tgt[..., 0]
+    lse = _logsumexp_vocab(logits)
+    tgt = _target_logits(logits, targets)
     nll = (lse - tgt) * mask
     loss = nll.sum() / torch.clamp(mask.sum(), min=1.0)
     total = loss + aux["lb_loss"] + aux["z_loss"]

@@ -164,19 +164,22 @@ _JOBS = {"train": _train_job, "serve": _serve_job,
          "compress": _compress_job}
 
 
-def sharded_step_worker(rank, world, store, jobs, out):
+def sharded_step_worker(rank, world, store, inbox, out):
     """One rank of a ``(world // 2, 2)`` ("data", "model") gloo mesh
-    running each job of ``jobs`` (dicts with a ``kind`` of `_JOBS` and a
-    ``name``), in order: puts ``(rank, {name: result})`` on ``out``, or
-    ``(rank, traceback)``.  Full tensors are gathered on every rank (a
-    collective) and kept by rank 0 only.  Each rank computes on one
-    thread: the work is small, and four ranks of torch's default thread
-    count would take the cores the other tests of a parallel run need."""
+    running each job of the list it takes from ``inbox`` (dicts with a
+    ``kind`` of `_JOBS` and a ``name``; the parent sends them once the
+    ranks have started), in order: puts ``(rank, {name: result})`` on
+    ``out``, or ``(rank, traceback)``.  Full tensors are gathered on every
+    rank (a collective) and kept by rank 0 only.  Each rank computes on
+    one thread: the work is small, and four ranks of torch's default
+    thread count would take the cores the other tests of a parallel run
+    need."""
     try:
         torch.set_num_threads(1)
         dist.init_process_group("gloo", init_method=f"file://{store}",
                                 world_size=world, rank=rank)
         mesh = tmesh.make_host_mesh(model=2)
+        jobs = inbox.get()
         res = {}
         for job in jobs:
             t0 = time.perf_counter()
@@ -195,16 +198,26 @@ def sharded_step_worker(rank, world, store, jobs, out):
 
 class Ranks:
     """``world`` spawned processes running ``target(rank, world, store,
-    *args, out)``; `collect` waits for each rank's ``(rank, result)``."""
+    *args, out)``, or with ``inbox`` ``target(rank, world, store, *args,
+    inbox, out)`` (`send` puts one object there for each rank); `collect`
+    waits for each rank's ``(rank, result)``."""
 
-    def __init__(self, target, store, *args, world=4):
+    def __init__(self, target, store, *args, world=4, inbox=False):
         ctx = multiprocessing.get_context("spawn")
         self.out, self.world = ctx.Queue(), world
+        self.inbox = ctx.Queue() if inbox else None
+        extra = (self.inbox,) if inbox else ()
         self.procs = [ctx.Process(target=target,
-                                  args=(r, world, store) + args + (self.out,))
+                                  args=(r, world, store) + args + extra
+                                  + (self.out,))
                       for r in range(world)]
         for p in self.procs:
             p.start()
+
+    def send(self, obj) -> None:
+        """``obj`` to every rank's ``inbox``."""
+        for _ in range(self.world):
+            self.inbox.put(obj)
 
     def collect(self, timeout: float) -> dict:
         """{rank: result} of every rank that answered within ``timeout``

@@ -1,0 +1,217 @@
+"""The port's dry run and hillclimb driver (`repro_torch.launch.dryrun`,
+`repro_torch.launch.hillclimb`) on the CPU, against the ``dryrun`` golden
+that the JAX dry run wrote (`tests/torch_goldens.py`: its own
+``compile_cell`` on 256 and 512 host devices with ``Auto`` axes).
+
+Each reduced cell of `DRYRUN_CELLS` runs once, as rank 0 of a fake 256-
+or 512-rank process group started and destroyed for it.  Held exactly:
+the argument bytes against XLA's ``argument_size_in_bytes`` (this rank's
+blocks against XLA's per-device shards), the new state's (or caches')
+bytes against its ``alias_size_in_bytes`` (what JAX donates), the
+analytic costs (``==``), and the compute and memory terms under each
+package's peaks.  Collective bytes are printed beside JAX's, never
+compared: XLA and DTensor choose different collectives.  The
+JAX modules are never imported here (importing them sets ``XLA_FLAGS``
+for the whole process).
+"""
+
+import json
+
+import pytest
+import torch
+import torch.distributed as dist
+
+from repro.launch import mesh as jmesh
+from repro_torch.configs.base import (ARCH_IDS, SHAPES, ShapeSpec,
+                                      get_config, reduced_config)
+from repro_torch.launch import dryrun, hillclimb, roofline
+from repro_torch.launch import mesh as tmesh
+from repro_torch.train import train_step as ts
+from tests.torch_goldens import (DATA, DRYRUN_CELLS, DRYRUN_D_MODEL,
+                                 DRYRUN_SKIPS, DRYRUN_TRAIN, HILLCLIMB_ARCH,
+                                 HILLCLIMB_VARIANTS, HYPER_FIELDS,
+                                 dryrun_cell_name, path_of)
+
+# the group sizes a collective may have on each mesh: a product of some of
+# its dims
+GROUP_SIZES = {False: {16, 256}, True: {2, 16, 32, 256, 512}}
+# counted FLOPs of this rank over the analytic per-device FLOPs: measured
+# 1.0 to 3.8 on the reduced cells (the reduced configs replicate their few
+# kv heads and SSD heads over "model", so each rank repeats that work); a
+# count of the global ops would be 256 or 512 times the analytic figure
+FLOPS_RATIO = (0.5, 8.0)
+
+
+@pytest.fixture(scope="module")
+def golden():
+    return json.loads(path_of("dryrun", DATA).read_text())
+
+
+def _key(arch, shape, mp):
+    return f"{arch}/{shape.name}/{'multi' if mp else 'single'}"
+
+
+def test_skip_reason_and_microbatches_equal_jax(golden):
+    for arch in ARCH_IDS:
+        cfg = get_config(arch)
+        for shape in SHAPES:
+            assert dryrun.skip_reason(cfg, shape) == \
+                golden["skip_reason"][f"{arch}/{shape.name}"]
+            for mp in (False, True):
+                assert dryrun.default_microbatches(cfg, shape, mp) == \
+                    golden["default_microbatches"][_key(arch, shape, mp)]
+
+
+def test_hyper_for_equals_jax_for_every_variant(golden):
+    n = 0
+    for arch in ARCH_IDS:
+        cfg = get_config(arch)
+        for shape in SHAPES:
+            for mp in (False, True):
+                for variant in hillclimb.VARIANTS:
+                    h = hillclimb.hyper_for(variant, cfg, shape, mp)
+                    assert {f: getattr(h, f) for f in HYPER_FIELDS} == \
+                        golden["hyper_for"][f"{_key(arch, shape, mp)}/"
+                                            f"{variant}"]
+                    n += 1
+    assert n == len(golden["hyper_for"])
+
+
+@pytest.fixture(scope="module")
+def cells():
+    """Every reduced cell's record, each on a fake group of its own, on
+    one thread: the blocks are tiny, and the time is DTensor's sharding
+    propagation in Python."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    out = {}
+    try:
+        for arch, spec, mp, nm in DRYRUN_CELLS:
+            shape = ShapeSpec(*spec)
+            hyper = (ts.TrainHyper(microbatches=nm, compress_cross_pod=mp)
+                     if shape.kind == "train" else None)
+            out[dryrun_cell_name(arch, shape.name, mp)] = \
+                dryrun.compile_cell(reduced_config(
+                    get_config(arch), d_model=DRYRUN_D_MODEL.get(arch, 128)),
+                    shape, mp, hyper, device="cpu")
+    finally:
+        torch.set_num_threads(threads)
+    assert not dist.is_initialized()
+    return out
+
+
+@pytest.mark.parametrize("arch,spec,mp,nm", DRYRUN_CELLS,
+                         ids=[dryrun_cell_name(a, s[0], mp)
+                              for a, s, mp, _ in DRYRUN_CELLS])
+def test_reduced_cell_equals_jax(cells, golden, arch, spec, mp, nm):
+    name = dryrun_cell_name(arch, spec[0], mp)
+    got, want = cells[name], golden["cells"][name]
+    beside = (f"{name}: collectives by kind, port {got['collectives']} "
+              f"beside JAX {want['collectives']}")
+    assert got["status"] == want["status"] == "ok", beside
+    for k, v in want.items():
+        assert k in got, k
+        if isinstance(v, dict):
+            assert set(v) <= set(got[k]), (k, set(v) - set(got[k]))
+    ma, jma = got["memory_analysis"], want["memory_analysis"]
+    assert ma["argument_bytes"] == jma["argument_bytes"], beside
+    assert ma["state_bytes"] == jma["alias_bytes"], beside
+    assert ma["alias_bytes"] == 0 and ma["temp_bytes"] == -1
+    assert ma["per_device_bytes"] == ma["argument_bytes"] + \
+        ma["output_bytes"]
+    assert got["analytic"] == want["analytic"], beside
+    flops = want["analytic"]["flops_per_device"]
+    hbm = want["analytic"]["hbm_bytes_per_device"]
+    assert got["roofline"]["compute_s"] == flops / tmesh.PEAK_FLOPS_BF16
+    assert want["roofline"]["compute_s"] == flops / jmesh.PEAK_FLOPS_BF16
+    assert got["roofline"]["memory_s"] == hbm / tmesh.HBM_BW
+    assert want["roofline"]["memory_s"] == hbm / jmesh.HBM_BW
+    assert got["n_chips"] == (512 if mp else 256)
+    assert got["collectives"]["ops"] > 0, beside
+    assert {int(g) for g in got["collectives"]["by_group_size"]} <= \
+        GROUP_SIZES[mp], beside
+    ratio = got["cost_analysis_raw"]["flops"] / flops
+    assert FLOPS_RATIO[0] <= ratio <= FLOPS_RATIO[1], (ratio, beside)
+
+
+@pytest.mark.parametrize("arch,shape_name,mp", DRYRUN_SKIPS)
+def test_skip_records_equal_jax(golden, arch, shape_name, mp):
+    assert dryrun.run_cell(arch, shape_name, mp, device="cpu") == \
+        golden["skips"][dryrun_cell_name(arch, shape_name, mp)]
+
+
+def test_main_writes_and_skips_an_existing_record(tmp_path, capsys):
+    argv = ["--arch", "hubert-xlarge", "--shape", "decode_32k", "--mesh",
+            "single", "--out", str(tmp_path), "--device", "cpu"]
+    dryrun.main(argv)
+    rec = json.loads((tmp_path / "hubert_xlarge_decode_32k_single.json")
+                     .read_text())
+    assert rec["status"] == "skipped" and "wall_s" in rec
+    dryrun.main(argv)
+    out = capsys.readouterr().out.splitlines()
+    assert out == ["[skipped] hubert_xlarge_decode_32k_single",
+                   "[skip existing] hubert_xlarge_decode_32k_single"]
+    assert not dist.is_initialized()
+
+
+def test_main_refuses_while_another_group_runs(tmp_path):
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store",
+                            world_size=1, rank=0)
+    try:
+        with pytest.raises(RuntimeError, match="gloo process group of 1"):
+            dryrun.main(["--arch", "hubert-xlarge", "--shape",
+                         "decode_32k", "--mesh", "single", "--out",
+                         str(tmp_path / "out"), "--device", "cpu"])
+    finally:
+        dist.destroy_process_group()
+
+
+def test_top_collectives_aggregates_and_orders():
+    calls = [("all-gather", (0, 1), 100, (2, 5), torch.bfloat16),
+             ("all-reduce", (0, 1), 300, (75,), torch.float32),
+             ("all-gather", (0, 1), 100, (2, 5), torch.bfloat16),
+             ("all-gather", (0, 2), 40, (2, 5), torch.bfloat16),
+             ("reduce-scatter", (0, 1), 8, (2,), torch.float32)]
+    sites = ["a.py:1 f", "b.py:2 g", "a.py:1 f", "c.py:3 h", "d.py:4 k"]
+    stats = roofline.CollectiveStats(
+        total_bytes=548, by_kind={}, by_group_size={}, ops=5,
+        calls=calls, sites=sites)
+    assert hillclimb.top_collectives(stats, k=3) == [
+        ("all-reduce", "f32[75]", "b.py:2 g", 300.0),
+        ("all-gather", "bf16[2,5]", "a.py:1 f", 200.0),
+        ("all-gather", "bf16[2,5]", "c.py:3 h", 40.0)]
+    unsited = roofline.CollectiveStats(total_bytes=548, by_kind={},
+                                       by_group_size={}, ops=5, calls=calls)
+    assert hillclimb.top_collectives(unsited, k=2) == [
+        ("all-reduce", "f32[75]", "?", 300.0),
+        ("all-gather", "bf16[2,5]", "?", 240.0)]
+
+
+@pytest.mark.parametrize("variant", HILLCLIMB_VARIANTS)
+def test_hillclimb_on_a_reduced_config_returns_jax_keys(golden, capsys,
+                                                        variant):
+    """`hillclimb._run` on reduced qwen1.5-0.5b: JAX's keys, JAX's terms
+    under each package's peaks, and the top collectives printed with where
+    each was issued (a frame of the port, or the autograd node of a
+    backward)."""
+    shape = ShapeSpec(*DRYRUN_TRAIN)
+    got = hillclimb._run(reduced_config(get_config(HILLCLIMB_ARCH)), shape,
+                         variant, False, device="cpu")
+    want = golden["hillclimb"][variant]
+    assert set(got) == set(want)
+    assert got["variant"] == variant
+    assert set(got["by_kind"]) == set(want["by_kind"])
+    assert got["collective_bytes"] == got["tpu_corrected_bytes"] > 0
+    for term, peak, jpeak in (("compute_s", tmesh.PEAK_FLOPS_BF16,
+                               jmesh.PEAK_FLOPS_BF16),
+                              ("memory_s", tmesh.HBM_BW, jmesh.HBM_BW)):
+        assert got["terms"][term] * peak == \
+            pytest.approx(want["terms"][term] * jpeak, rel=1e-12)
+    out = capsys.readouterr().out.splitlines()
+    assert out[0].startswith(f"== qwen1.5-0.5b-smoke x dry_train x 16x16 "
+                             f"[{variant}]")
+    rows = [ln for ln in out if "GiB  " in ln]
+    assert rows and all(".py:" in ln or "backward of " in ln
+                        for ln in rows), out
+    assert any("models/lm.py" in ln or "train/train_step.py" in ln
+               for ln in rows), out

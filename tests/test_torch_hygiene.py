@@ -42,6 +42,7 @@ def test_port_imports_neither_jax_nor_repro():
             "import repro_torch.optim.adamw, repro_torch.optim.grad_compress\n"
             "import repro_torch.checkpoint.ckpt\n"
             "import repro_torch.train.train_step, repro_torch.train.trainer\n"
+            "import repro_torch.launch.dryrun, repro_torch.launch.hillclimb\n"
             "import repro_torch.core.vtop, repro_torch.core.attacker\n"
             "import repro_torch.core.plancost, repro_torch.core.fleetshard\n"
             "import repro_torch.core.fleet\n"
@@ -111,6 +112,39 @@ def test_lm_modules_public_names_are_the_jax_modules(name):
     assert set(port.__all__) - extra <= set(dir(ref))
     assert extra <= set(port.__all__)
     # every public function or class the port module defines is listed
+    own = {n for n, v in vars(port).items()
+           if not n.startswith("_") and (inspect.isfunction(v)
+                                         or inspect.isclass(v))
+           and v.__module__ == port.__name__}
+    assert own <= set(port.__all__), own - set(port.__all__)
+
+
+def _top_level_names(path: Path) -> set:
+    """The functions, classes and assigned names a module's source defines
+    at its top level, read with `ast` (the module is not imported)."""
+    import ast
+    names = set()
+    for node in ast.parse(path.read_text()).body:
+        if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+            names.add(node.name)
+        elif isinstance(node, ast.Assign):
+            names |= {t.id for t in node.targets if isinstance(t, ast.Name)}
+    return names
+
+
+@pytest.mark.parametrize("name", ["launch.dryrun", "launch.hillclimb"])
+def test_dry_run_modules_public_names_are_the_jax_modules(name):
+    """The dry run's modules against the JAX modules' top-level
+    definitions, parsed from their source: importing them sets
+    ``XLA_FLAGS`` to 512 host devices for the whole process."""
+    import importlib
+    import inspect
+    port = importlib.import_module(f"repro_torch.{name}")
+    ref = _top_level_names(ROOT / "src" / "repro" /
+                           (name.replace(".", "/") + ".py"))
+    extra = EXTRA.get(port.__name__, set())
+    assert set(port.__all__) - extra <= ref, set(port.__all__) - ref
+    assert extra <= set(port.__all__)
     own = {n for n, v in vars(port).items()
            if not n.startswith("_") and (inspect.isfunction(v)
                                          or inspect.isclass(v))

@@ -29,6 +29,7 @@ Tolerances (f32 compute on both sides, sums in other orders): metrics rel
 import functools
 import json
 import math
+from concurrent.futures import ThreadPoolExecutor
 
 import jax
 import jax.numpy as jnp
@@ -133,9 +134,24 @@ def _jax_serve(cfg, params, batch):
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
-    """(rank results, JAX references): the ranks run every job while the
-    parent computes the references."""
-    inputs = {arch: sharded_inputs(arch) for arch in ARCHS}
+    """(rank results, JAX references): the ranks start first, then run
+    every job while the parent computes the references, the JAX functions
+    compiled in threads side by side (XLA compiles without the
+    interpreter lock)."""
+    store = tmp_path_factory.mktemp("sharded") / "store"
+    ranks = _torch_gloo.Ranks(_torch_gloo.sharded_step_worker, str(store),
+                              inbox=True)
+    try:
+        return _run_and_reference(ranks)
+    finally:
+        ranks.collect(0)      # a no-op once collected; else ends the ranks
+
+
+def _run_and_reference(ranks):
+    """The body of `runs`: the jobs sent to the started ``ranks``, the
+    references computed, the ranks' results collected."""
+    with ThreadPoolExecutor(len(ARCHS)) as pool:
+        inputs = dict(zip(ARCHS, pool.map(sharded_inputs, ARCHS)))
     jobs = []
     for arch, mi, nm, sp in TRAIN:
         _, state, batch = inputs[arch]
@@ -156,17 +172,25 @@ def runs(tmp_path_factory):
     _, _, batch = inputs[COUNTED]
     jobs.append(dict(kind="compress", name="compress", arch=COUNTED, nm=2,
                      shape=SHARDED_SHAPE, batch=batch))
-    store = tmp_path_factory.mktemp("sharded") / "store"
-    ranks = _torch_gloo.Ranks(_torch_gloo.sharded_step_worker, str(store),
-                              jobs)
-    refs = {}
-    for arch, mi, nm, sp in TRAIN:
+    ranks.send(jobs)
+
+    def case(arch, mi):
+        """Both steps of a case, one after the other (one compiled JAX
+        function)."""
         cfg, state, batch = inputs[arch]
-        refs[_name(arch, mi, nm, sp)] = _jax_step(
+        return {_name(arch, mi, nm, sp): _jax_step(
             cfg, state, sharded_rows(batch, nm), nm, mi)
-    for arch in ARCHS:
-        cfg, state, batch = inputs[arch]
-        refs[f"{arch}_serve"] = _jax_serve(cfg, state.params, batch)
+            for nm, sp in SHARDED_STEPS}
+
+    with ThreadPoolExecutor(len(SHARDED_CASES) + len(ARCHS)) as pool:
+        futures = [pool.submit(case, arch, mi)
+                   for arch, mi in SHARDED_CASES]
+        serve = {arch: pool.submit(_jax_serve, inputs[arch][0],
+                                   inputs[arch][1].params, inputs[arch][2])
+                 for arch in ARCHS}
+        refs = {k: v for f in futures for k, v in f.result().items()}
+        refs.update({f"{arch}_serve": f.result()
+                     for arch, f in serve.items()})
     got = ranks.collect(RANK_TIMEOUT)
     return got, refs
 
@@ -320,20 +344,28 @@ def _axis(ranks):
 
 
 # The counts `test_count_collectives_of_the_train_step_on_four_ranks`
-# pins, rank 0's: {(kind, mesh dim): collectives}, and bytes by kind.
+# pins, rank 0's: {(kind, mesh dim): collectives}, and bytes by kind.  The
+# loss's log-sum-exp over the vocab-parallel logits gathers one entry a
+# rank (`lm._logsumexp_vocab`), where DTensor's own rule gathered the
+# logits' vocab blocks (32,640 all-gather bytes more a microbatch).  Under
+# sequence parallelism each layer gathers the normed residual's sequence
+# before its two tensor-parallel regions and reduce-scatters their
+# outputs, and the final norm's output is gathered before the unembedding
+# (`lm._whole_seq`, `lm._like_residual`), where DTensor's own rules moved
+# more (62 / 38 model-dim all-gathers / reduce-scatters).
 COUNT_SNAPSHOT = {
     "nm1_sp0": ({("all-gather", "data"): 9, ("all-gather", "model"): 6,
                  ("all-reduce", "data"): 9, ("all-reduce", "model"): 26,
                  ("reduce-scatter", "data"): 9,
                  ("reduce-scatter", "model"): 3},
-                {"all-gather": 1765376, "all-reduce": 173140,
+                {"all-gather": 1732736, "all-reduce": 173140,
                  "reduce-scatter": 1368064}),
-    "nm2_sp1": ({("all-gather", "data"): 18, ("all-gather", "model"): 62,
+    "nm2_sp1": ({("all-gather", "data"): 18, ("all-gather", "model"): 22,
                  ("all-reduce", "data"): 15, ("all-reduce", "model"): 20,
                  ("reduce-scatter", "data"): 18,
-                 ("reduce-scatter", "model"): 38},
-                {"all-gather": 3686784, "all-reduce": 301208,
-                 "reduce-scatter": 1744896}),
+                 ("reduce-scatter", "model"): 18},
+                {"all-gather": 3342592, "all-reduce": 100504,
+                 "reduce-scatter": 1662976}),
 }
 
 
@@ -361,8 +393,11 @@ def test_count_collectives_of_the_train_step_on_four_ranks(runs, nm, sp):
         "model" between the tensor-parallel regions: those all-reduces
         become reduce-scatters onto ``B_l x S/2 x D`` blocks and
         all-gathers back to ``B_l x S x D`` (Megatron-SP); the one
-        residual-sized all-reduce left a microbatch is the token
-        embedding's vocab-parallel sum (`layers._embed_on_blocks`).
+        residual-shaped all-reduce left a microbatch is the token
+        embedding's vocab-parallel sum (`layers._embed_on_blocks`).  (The
+        kv projections' gradients, ``B_l x S x Hkv x dh`` with the kv
+        heads replicated over "model", are as many elements as the
+        residual and are all-reduced too.)
     The counts by kind and mesh dim, and the bytes by kind, are pinned as
     a snapshot (rank 0's; DTensor picks them, so a torch upgrade may move
     them)."""
@@ -388,7 +423,9 @@ def test_count_collectives_of_the_train_step_on_four_ranks(runs, nm, sp):
                 (kind, shape)
     resid = [(k, nbytes // 4) for k, r, nbytes, _, _ in stats.calls
              if _axis(r) == "model"]
-    summed = resid.count(("all-reduce", b_l * seq * d))
+    summed = sum(1 for k, r, _, shape, _ in stats.calls
+                 if _axis(r) == "model" and k == "all-reduce"
+                 and shape == (b_l, seq, d))
     if sp:
         assert ("reduce-scatter", b_l * seq // 2 * d) in resid
         assert ("all-gather", b_l * seq * d) in resid

@@ -65,6 +65,17 @@ ARCHS = ["qwen1p5_0p5b", "zamba2_2p7b"]
 SMOKE = (32, 8)                        # (seq, global batch)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """The port's side on one thread: the reduced steps are host-bound,
+    and under a parallel run torch's default thread count (one a core)
+    in every worker oversubscribes the cores many times over."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _cfgs(arch):
     return jreduced_config(jget_config(arch)), reduced_config(get_config(arch))
 

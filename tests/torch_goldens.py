@@ -33,6 +33,19 @@ but ``wall_s`` and ``guests_per_sec``.  The goldens:
                                microbatch of 2 rows; 2 of 2 with
                                ``sequence_parallel``), and
                                ``jit_prefill``'s logits sums (4 rows)
+  dryrun                       the JAX dry run and hillclimb driver, in a
+                               process of their own with 512 host devices
+                               and ``make_production_mesh`` replaced by an
+                               ``Auto``-axes mesh in their namespaces
+                               (`golden_dryrun`): ``skip_reason``,
+                               ``default_microbatches`` and ``hyper_for``
+                               over every arch, shape, mesh and variant;
+                               ``compile_cell`` records of `DRYRUN_CELLS`
+                               (reduced) and `DRYRUN_FULL` (full width);
+                               ``run_cell`` of `DRYRUN_SKIPS`;
+                               ``hillclimb.run`` of `HILLCLIMB_VARIANTS`
+                               on reduced qwen1.5-0.5b and of
+                               `HILLCLIMB_FULL`
   pod_loop                     the pod backend's closed loop:
                                ``run_pod_loop("on")`` and ``("off")`` at
                                seed 0, ``PodFleetSim(intervals=12,
@@ -83,6 +96,57 @@ SHARDED_MICRO = 2
 def sharded_rows(data: dict, nm: int) -> dict:
     """The rows of ``data`` a step of ``nm`` microbatches takes."""
     return {k: v[:nm * SHARDED_MICRO] for k, v in data.items()}
+# The dry run's reduced cells: (arch, (shape name, seq, batch, kind),
+# multi_pod, microbatches), each on `reduced_config(arch, d_model=
+# DRYRUN_D_MODEL.get(arch, 128))`; train cells with TrainHyper(
+# microbatches, compress_cross_pod=multi_pod).  Reduced zamba2 takes
+# d_model 256 for 16 SSM heads: XLA refuses to split its 8 heads at
+# d_model 128 over the 16 "model" devices.  The single-pod train shape
+# gives the hillclimb's default 2 microbatches the dry run's rows (so its
+# baseline repeats the dry run's ops); the 2 x 16 x 16 mesh needs twice
+# the batch for 2 microbatches.  The full-width cells: (arch, shape name,
+# multi_pod, microbatches), None for `compile_cell`'s default (8 for
+# train_4k); `chip_smoke.py` runs the train cells at 2 microbatches, a
+# quarter of the host time of 8, and holds their argument bytes (which the
+# microbatches do not change) to both.  The hillclimb's variants run on
+# reduced qwen1.5-0.5b at DRYRUN_TRAIN, and at full width the one
+# `chip_smoke.py` runs (HILLCLIMB_FULL).
+DRYRUN_TRAIN = ("dry_train", 64, 32, "train")
+DRYRUN_CELLS = (("qwen1p5_0p5b", DRYRUN_TRAIN, False, 2),
+                ("qwen1p5_0p5b", ("dry_train_pods", 64, 64, "train"), True,
+                 2),
+                ("qwen1p5_0p5b", ("dry_prefill", 64, 32, "prefill"), False,
+                 1),
+                ("qwen1p5_0p5b", ("dry_decode", 64, 32, "decode"), False, 1),
+                ("qwen2_moe_a2p7b", DRYRUN_TRAIN, False, 1),
+                ("zamba2_2p7b", ("dry_prefill", 64, 32, "prefill"), False,
+                 1))
+DRYRUN_D_MODEL = {"zamba2_2p7b": 256}
+DRYRUN_FULL = (("qwen2.5-14b", "train_4k", False, None),
+               ("qwen2.5-14b", "train_4k", True, None),
+               ("qwen2.5-14b", "train_4k", False, 2),
+               ("qwen2.5-14b", "train_4k", True, 2),
+               ("qwen2.5-14b", "decode_32k", False, None),
+               ("zamba2-2.7b", "prefill_32k", False, None))
+HILLCLIMB_FULL = ("qwen2.5-14b", "train_4k", "seqpar+mb2", False)
+# cells the dry run skips: long_500k on a pure-attention arch, a decode
+# on the encoder
+DRYRUN_SKIPS = (("qwen2.5-14b", "long_500k", False),
+                ("hubert-xlarge", "decode_32k", True))
+HILLCLIMB_ARCH = "qwen1p5_0p5b"
+HILLCLIMB_VARIANTS = ("baseline", "seqpar")
+# the TrainHyper fields `hyper_for` sets (the AdamW config and the compute
+# dtype are each package's own objects)
+HYPER_FIELDS = ("microbatches", "remat", "compress_cross_pod", "impl",
+                "cast_params_once", "sequence_parallel", "moe_impl")
+
+
+def dryrun_cell_name(arch: str, shape_name: str, multi_pod: bool,
+                     microbatches=None) -> str:
+    mb = f"_mb{microbatches}" if microbatches else ""
+    return f"{arch}_{shape_name}{mb}_{'multi' if multi_pod else 'single'}"
+
+
 SHARD_GUESTS = (8, 64, 256)
 TUNE_GUESTS = (1, 4, 8)
 
@@ -259,6 +323,93 @@ def golden_sharded_steps() -> dict:
     return json.loads(proc.stdout.splitlines()[-1])
 
 
+def _auto_mesh(*, multi_pod: bool = False):
+    """The production mesh with ``Auto`` axes (the JAX default,
+    ``Explicit``, is refused by the step's ``with_sharding_constraint``
+    calls; ROADMAP §3)."""
+    import jax
+    from jax.sharding import AxisType
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return jax.make_mesh(shape, axes, axis_types=(AxisType.Auto,) *
+                         len(shape))
+
+
+def _jsonable(x):
+    return json.loads(json.dumps(x, default=float))
+
+
+def _dryrun() -> dict:
+    """The golden's content; needs 512 JAX devices (see
+    `golden_dryrun`)."""
+    from repro.configs.base import (ARCH_IDS, SHAPE_BY_NAME, SHAPES,
+                                    ShapeSpec, get_config, reduced_config)
+    from repro.launch import dryrun, hillclimb
+    from repro.train import train_step as jts
+    dryrun.make_production_mesh = _auto_mesh
+    hillclimb.make_production_mesh = _auto_mesh
+    out = {"skip_reason": {}, "default_microbatches": {}, "hyper_for": {},
+           "cells": {}, "full": {}, "hillclimb": {}}
+    for arch in ARCH_IDS:
+        cfg = get_config(arch)
+        for shape in SHAPES:
+            key = f"{arch}/{shape.name}"
+            out["skip_reason"][key] = dryrun.skip_reason(cfg, shape)
+            for mp in (False, True):
+                mkey = f"{key}/{'multi' if mp else 'single'}"
+                out["default_microbatches"][mkey] = \
+                    dryrun.default_microbatches(cfg, shape, mp)
+                for variant in hillclimb.VARIANTS:
+                    h = hillclimb.hyper_for(variant, cfg, shape, mp)
+                    out["hyper_for"][f"{mkey}/{variant}"] = {
+                        f: getattr(h, f) for f in HYPER_FIELDS}
+    for arch, spec, mp, nm in DRYRUN_CELLS:
+        cfg = reduced_config(get_config(arch),
+                             d_model=DRYRUN_D_MODEL.get(arch, 128))
+        shape = ShapeSpec(*spec)
+        hyper = (jts.TrainHyper(microbatches=nm, compress_cross_pod=mp)
+                 if shape.kind == "train" else None)
+        rec = dryrun.compile_cell(cfg, shape, mp, hyper)
+        rec["collectives"].pop("ops")
+        out["cells"][dryrun_cell_name(arch, shape.name, mp)] = _jsonable(rec)
+    for arch, shape_name, mp, nm in DRYRUN_FULL:
+        if nm is None:
+            rec = dryrun.run_cell(arch, shape_name, mp)
+        else:
+            rec = dryrun.compile_cell(
+                get_config(arch), SHAPE_BY_NAME[shape_name], mp,
+                jts.TrainHyper(microbatches=nm, compress_cross_pod=mp))
+        if rec["status"] != "ok":
+            raise RuntimeError(f"{arch} {shape_name}: {rec}")
+        rec["collectives"].pop("ops")
+        out["full"][dryrun_cell_name(arch, shape_name, mp, nm)] = \
+            _jsonable(rec)
+    out["hillclimb_full"] = _jsonable(hillclimb.run(*HILLCLIMB_FULL,
+                                                    show_top=False))
+    out["skips"] = {dryrun_cell_name(arch, shape_name, mp):
+                    dryrun.run_cell(arch, shape_name, mp)
+                    for arch, shape_name, mp in DRYRUN_SKIPS}
+    shape = ShapeSpec(*DRYRUN_TRAIN)
+    hillclimb.get_config = lambda arch: reduced_config(get_config(arch))
+    hillclimb.SHAPE_BY_NAME = {**SHAPE_BY_NAME, shape.name: shape}
+    for variant in HILLCLIMB_VARIANTS:
+        out["hillclimb"][variant] = _jsonable(hillclimb.run(
+            HILLCLIMB_ARCH, shape.name, variant, False, show_top=False))
+    return out
+
+
+def golden_dryrun() -> dict:
+    """Runs `_dryrun` in a process of its own: importing the JAX dry run
+    sets ``XLA_FLAGS`` to 512 host devices, which must precede JAX's
+    first use."""
+    env = {**os.environ, "JAX_PLATFORMS": "cpu"}
+    proc = subprocess.run([sys.executable, __file__, "--dryrun-child"],
+                          env=env, capture_output=True, text=True)
+    if proc.returncode:
+        raise RuntimeError(proc.stderr[-4000:])
+    return json.loads(proc.stdout.splitlines()[-1])
+
+
 def goldens() -> dict:
     """name -> thunk writing that golden's content."""
     from repro.core.platforms import list_platforms
@@ -271,6 +422,7 @@ def goldens() -> dict:
     g["tune"] = golden_tune
     g["pod_loop"] = golden_pod_loop
     g["sharded_steps"] = golden_sharded_steps
+    g["dryrun"] = golden_dryrun
     return g
 
 
@@ -281,6 +433,9 @@ def path_of(name: str, out: Path = DATA) -> Path:
 def main(argv=None) -> int:
     if (argv if argv is not None else sys.argv[1:]) == ["--sharded-child"]:
         print(json.dumps(_sharded_steps(), sort_keys=True))
+        return 0
+    if (argv if argv is not None else sys.argv[1:]) == ["--dryrun-child"]:
+        print(json.dumps(_dryrun(), sort_keys=True))
         return 0
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", type=Path, default=DATA)
