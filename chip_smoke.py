@@ -65,7 +65,7 @@ Four phases, in order; any failure exits non-zero:
              each with 9 `flash_attention` launches, 54 `ssd_scan` calls
              of 4 launches each and no plain call, held against
              `impl="ref"`; then `ServeEngine` answers 6 requests of
-             256-token prompts (two waves of 4 slots, 8 new tokens each)
+             64-token prompts (two waves of 4 slots, 8 new tokens each)
              in f32, its first tokens held against the kernel prefill's
              argmax, and again in bf16;
              (iii) training qwen1.5-0.5b at full width and depth (24
@@ -162,13 +162,18 @@ Four phases, in order; any failure exits non-zero:
              (ix) the dry run (`launch.dryrun`), each cell as rank 0 of
              a fake 256- or 512-rank process group on the card, starting
              with at most 1 GiB allocated: full-width qwen2.5-14b
-             `train_4k` on the 16 x 16 and 2 x 16 x 16 meshes (2
-             microbatches), zamba2-2.7b `prefill_32k` and qwen2.5-14b
+             `train_4k` on the 16 x 16 and 2 x 16 x 16 meshes,
+             qwen2-moe-a2.7b `train_4k` under the gshard and the sorted
+             dispatch and llama4-scout-17b-a16e `train_4k` on the 16 x
+             16 mesh (2 microbatches each), zamba2-2.7b, hubert-xlarge
+             and pixtral-12b `prefill_32k` and qwen2.5-14b
              `decode_32k`, each ``ok`` with argument bytes equal to the
              JAX dry run's (tests/data/torch_golden_dryrun.json) and a
              measured per-device peak under `HBM_BYTES`, printed beside
-             JAX's; the prefill's `flash_attention` and `ssd_scan`
-             launched on the rank's block (9 and 216, no plain call);
+             JAX's; each prefill's kernels launched on the rank's block
+             (zamba2 9 `flash_attention` and 216 `ssd_scan`,
+             hubert-xlarge 48 and pixtral-12b 40 `flash_attention`, no
+             plain call);
              qwen2.5-14b `long_500k` skipped with JAX's reason; then
              `hillclimb.run` of qwen2.5-14b `train_4k` under
              `seqpar+mb2`, its top collectives printed with the frames
@@ -1048,7 +1053,9 @@ def engine_bytes(geom, l2_rows: int, llc_rows: int, steps: int, lanes: int,
 
 SERVE_ARCH = "zamba2_2p7b"
 PREFILL_B, PREFILL_S = 2, 2048
-SERVE_REQUESTS, SERVE_PROMPT, SERVE_NEW, SERVE_SLOTS = 6, 256, 8, 4
+# (64-token prompts: at 256 the two engine runs took 160 s of the
+# script's 1200 s limit, the engine feeding each prompt token by token)
+SERVE_REQUESTS, SERVE_PROMPT, SERVE_NEW, SERVE_SLOTS = 6, 64, 8, 4
 # kernel calls of one zamba2-2.7b prefill: 54 // 6 = 9 shared attention
 # blocks, 54 Mamba2 layers (each `ssd_scan` call is
 # `ssd_scan.kernel.LAUNCHES_PER_CALL` launches)
@@ -1239,7 +1246,7 @@ def serve_main_path(smoke, card):
               f"{kern.get('flash_attention', 0):.1f} ms, ssd_scan "
               f"{kern.get('ssd_scan', 0):.1f} ms on {card}")
 
-    # the engine: 6 requests of 256-token prompts, two waves of 4 slots
+    # the engine: 6 requests of 64-token prompts, two waves of 4 slots
     prompts = rng.integers(0, cfg.vocab, (SERVE_REQUESTS, SERVE_PROMPT)
                            ).astype(np.int32)
     _build.reset_counters()
@@ -2653,43 +2660,60 @@ def sharded_main_path(smoke, card):
 DRYRUN_START_MAX_BYTES = 1 << 30
 DRYRUN_GOLDEN = ROOT / "tests" / "data" / "torch_golden_dryrun.json"
 # The full-width cells of the golden the path runs, (arch, shape,
-# multi_pod, microbatches): the train cells at 2 microbatches
-# (tests/torch_goldens.py: a full qwen2.5-14b step at the default 8 takes
-# about 4 minutes of host time on the card, mostly the plain attention's
-# chunk loop), the prefill and the decode at their defaults.
-DRYRUN_RUN = (("qwen2.5-14b", "train_4k", False, 2),
-              ("qwen2.5-14b", "train_4k", True, 2),
-              ("zamba2-2.7b", "prefill_32k", False, None),
-              ("qwen2.5-14b", "decode_32k", False, None))
+# multi_pod, microbatches, moe dispatch): the train cells at 2
+# microbatches (tests/torch_goldens.py: a full qwen2.5-14b step at the
+# default 8 takes about 4 minutes of host time on the card, mostly the
+# plain attention's chunk loop; the moe family's default is 16), the
+# prefills and the decode at their defaults.
+DRYRUN_RUN = (("qwen2.5-14b", "train_4k", False, 2, "gshard"),
+              ("qwen2.5-14b", "train_4k", True, 2, "gshard"),
+              ("zamba2-2.7b", "prefill_32k", False, None, "gshard"),
+              ("qwen2.5-14b", "decode_32k", False, None, "gshard"),
+              ("qwen2-moe-a2.7b", "train_4k", False, 2, "gshard"),
+              ("qwen2-moe-a2.7b", "train_4k", False, 2, "sorted"),
+              ("llama4-scout-17b-a16e", "train_4k", False, 2, "gshard"),
+              ("hubert-xlarge", "prefill_32k", False, None, "gshard"),
+              ("pixtral-12b", "prefill_32k", False, None, "gshard"))
 DRYRUN_SKIP = ("qwen2.5-14b", "long_500k", False)
 
 
+def dryrun_launches(arch: str) -> dict:
+    """The kernel launches a full-width prefill cell of path (ix) makes on
+    the rank's block: zamba2-2.7b's those of phase (ii)'s prefill, the
+    others one `flash_attention` a layer, as phase 3 (v) counts them."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels.ssd_scan.kernel import LAUNCHES_PER_CALL
+    if arch == "zamba2-2.7b":
+        return {"flash_attention": PREFILL_CALLS["flash_attention"],
+                "ssd_scan": PREFILL_CALLS["ssd_scan"] * LAUNCHES_PER_CALL}
+    return {"flash_attention": get_config(arch).n_layers}
+
+
 def dryrun_main_path(smoke, card):
-    """Path (ix): `launch.dryrun` on the card, each cell as rank 0 of a
-    fake 256- or 512-rank group of its own, after (viii): full qwen2.5-14b
-    `train_4k` on both meshes (`compile_cell` at 2 microbatches),
-    zamba2-2.7b `prefill_32k` and qwen2.5-14b `decode_32k` (`run_cell`)
-    must come back ``ok`` with the JAX dry run's argument bytes (the
-    golden; for the train cells also its record at the default 8
-    microbatches: the state and the batch do not depend on them) and a
-    measured per-device peak under `HBM_BYTES`, printed beside JAX's at
-    the same microbatches; the prefill must launch `flash_attention` and
-    `ssd_scan` on the rank's block, 9 and 54 x 4 times, with no plain call
-    (the counters set to 0 just before the cell, read just after);
-    `long_500k` is skipped with JAX's reason; then
+    """Path (ix): `launch.dryrun` on the card, each cell of `DRYRUN_RUN`
+    as rank 0 of a fake 256- or 512-rank group of its own, after (viii):
+    full qwen2.5-14b `train_4k` on both meshes, qwen2-moe-a2.7b
+    `train_4k` under both dispatches and llama4-scout-17b-a16e
+    `train_4k` (`compile_cell` at 2 microbatches), zamba2-2.7b,
+    hubert-xlarge and pixtral-12b `prefill_32k` and qwen2.5-14b
+    `decode_32k` (`run_cell`) must come back ``ok`` with the JAX dry
+    run's argument bytes (the golden; for the train cells also its
+    record at the default microbatches: the state and the batch do not
+    depend on them) and a measured per-device peak under `HBM_BYTES`,
+    printed beside JAX's at the same microbatches; each prefill must
+    launch its kernels on the rank's block (`dryrun_launches`) with no
+    plain call (the counters set to 0 just before the cell, read just
+    after); `long_500k` is skipped with JAX's reason; then
     `hillclimb.run(qwen2.5-14b, train_4k, seqpar+mb2)` with its top
     collectives.  The path must start with at most 1 GiB allocated."""
     torch = smoke.torch
     from repro_torch import _build
     from repro_torch.configs.base import SHAPE_BY_NAME, get_config
-    from repro_torch.kernels.ssd_scan.kernel import LAUNCHES_PER_CALL
     from repro_torch.launch import dryrun, hillclimb
     from repro_torch.launch.mesh import HBM_BYTES
     from repro_torch.train.train_step import TrainHyper
     tg = goldens()
     golden = json.loads(DRYRUN_GOLDEN.read_text())
-    expected = {"flash_attention": PREFILL_CALLS["flash_attention"],
-                "ssd_scan": PREFILL_CALLS["ssd_scan"] * LAUNCHES_PER_CALL}
     t_phase = time.perf_counter()
     start = torch.cuda.memory_allocated()
     print(f"dryrun: {start / 2**30:.3f} GiB allocated on the card before "
@@ -2698,10 +2722,11 @@ def dryrun_main_path(smoke, card):
         raise AssertionError(f"dryrun: {start / 2**30:.2f} GiB still "
                              f"allocated from earlier phases")
     res = {"cells": {}, "card": card}
-    for arch, shape, mp, nm in DRYRUN_RUN:
-        name = tg.dryrun_cell_name(arch, shape, mp, nm)
+    for arch, shape, mp, nm, impl in DRYRUN_RUN:
+        name = tg.dryrun_cell_name(arch, shape, mp, nm, impl)
         want = golden["full"][name]
-        default = golden["full"][tg.dryrun_cell_name(arch, shape, mp)]
+        default = golden["full"][tg.dryrun_cell_name(arch, shape, mp,
+                                                     moe_impl=impl)]
         _build.reset_counters()
         t0 = time.perf_counter()
         if nm is None:
@@ -2709,7 +2734,8 @@ def dryrun_main_path(smoke, card):
         else:
             rec = dryrun.compile_cell(
                 get_config(arch), SHAPE_BY_NAME[shape], mp,
-                TrainHyper(microbatches=nm, compress_cross_pod=mp))
+                TrainHyper(microbatches=nm, compress_cross_pod=mp,
+                           moe_impl=impl))
         wall = time.perf_counter() - t0
         launches = {k: v for k, v in _build.LAUNCHES.items() if v}
         plain = {k: v for k, v in _build.PLAIN_CALLS.items() if v}
@@ -2745,6 +2771,7 @@ def dryrun_main_path(smoke, card):
                 or not ma["per_device_bytes"] < HBM_BYTES \
                 or ma["temp_bytes"] < 0:
             raise AssertionError(f"dryrun: {name}: {ma} against JAX's {jma}")
+        expected = dryrun_launches(arch)
         if shape.startswith("prefill") and (
                 rec["kernel_launches"] != expected or rec["plain_calls"]
                 or launches != expected or plain):

@@ -38,7 +38,7 @@ from repro_torch._tree import tree_map, tree_map_with_path
 __all__ = ["DEFAULT_RULES", "resolve", "placements", "use_mesh_rules",
            "shard_hint", "PARAM_RULES", "path_str", "logical_axes_for",
            "param_sharding", "param_spec", "distribute_tree", "gather_tree",
-           "block_offset", "on_blocks", "reduce_partial"]
+           "block_offset", "on_blocks", "reduce_partial", "bind_mesh_rules"]
 
 # logical axis -> mesh dim (None = replicated)
 DEFAULT_RULES: Dict[str, Optional[object]] = {
@@ -127,6 +127,28 @@ def use_mesh_rules(mesh, rules: Optional[Dict[str, object]] = None):
             yield
     finally:
         _ctx.state = prev
+
+
+def bind_mesh_rules(fn):
+    """``fn`` run under the `use_mesh_rules` context active where it is
+    bound, on whichever thread calls it (unchanged outside one).  The
+    context is thread-local, and activation checkpointing recomputes a
+    unit in the backward, which on the card runs on autograd's device
+    thread: unbound, every `shard_hint` of the recompute is a no-op, the
+    recomputed blocks take other shapes than the forward's, and
+    ``torch.utils.checkpoint`` raises."""
+    state = getattr(_ctx, "state", None)
+    if state is None:
+        return fn
+
+    def bound(*args, **kwargs):
+        prev = getattr(_ctx, "state", None)
+        _ctx.state = state
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            _ctx.state = prev
+    return bound
 
 
 def block_offset(placements, mesh, dim: int, n: int) -> int:

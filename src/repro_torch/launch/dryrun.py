@@ -215,10 +215,16 @@ def _cell_step(cfg: ArchConfig, shape: ShapeSpec, mesh, hyper, device: str,
 
 
 def _arg_bytes(cfg, shape, args) -> int:
-    """The local bytes of every argument; a decode step's position, a
-    plain int, as the 0-d int32 `input_specs` gives it (JAX passes
-    ``jnp.int32(0)``)."""
+    """The local bytes of every argument the step reads, as XLA counts a
+    compiled step's arguments (`jax.jit` drops an argument its function
+    never reads): the encoder's MLP is a GELU of ``w_up`` and ``w_down``,
+    so its prefill never reads ``w_gate`` (kept in the tree, as in the
+    JAX package; a train step's AdamW reads it); a decode step's
+    position, a plain int, as the 0-d int32 `input_specs` gives it (JAX
+    passes ``jnp.int32(0)``)."""
     n = _local_bytes(args)
+    if cfg.family == "encoder" and shape.kind == "prefill":
+        n -= _local_bytes(args[0]["layers"]["mlp"]["w_gate"])
     if shape.kind == "decode":
         pos = input_specs(cfg, shape)["pos"]
         n += pos.numel() * pos.element_size()
@@ -369,7 +375,11 @@ def compile_cell(cfg: ArchConfig, shape: ShapeSpec, multi_pod: bool,
 
 
 def run_cell(arch: str, shape_name: str, multi_pod: bool,
-             device: str = "cuda") -> Dict:
+             device: str = "cuda", microbatches: Optional[int] = None
+             ) -> Dict:
+    """A cell's record (`compile_cell`), ``"skipped"`` with the JAX
+    module's reason, or ``"error"`` with the exception.  A train cell
+    runs at ``microbatches`` (default `default_microbatches`)."""
     cfg = get_config(arch)
     shape = SHAPE_BY_NAME[shape_name]
     reason = skip_reason(cfg, shape)
@@ -377,8 +387,12 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
         return {"arch": cfg.name, "shape": shape.name,
                 "mesh": _mesh_name(multi_pod),
                 "status": "skipped", "reason": reason}
+    hyper = None
+    if microbatches and shape.kind == "train":
+        hyper = ts.TrainHyper(microbatches=microbatches,
+                              compress_cross_pod=multi_pod)
     try:
-        return compile_cell(cfg, shape, multi_pod, device=device)
+        return compile_cell(cfg, shape, multi_pod, hyper, device=device)
     except Exception as e:  # a failure here is a bug in the system
         return {"arch": cfg.name, "shape": shape.name,
                 "mesh": _mesh_name(multi_pod),
@@ -396,6 +410,9 @@ def main(argv=None):
     ap.add_argument("--out", default="build/dryrun")
     ap.add_argument("--device", default="cuda",
                     help="where the rank's blocks live (cuda or cpu)")
+    ap.add_argument("--microbatches", type=int, default=None,
+                    help="train cells' microbatches (default: "
+                         "default_microbatches)")
     args = ap.parse_args(argv)
 
     archs = list(ARCH_IDS) if args.all or not args.arch else [args.arch]
@@ -416,7 +433,8 @@ def main(argv=None):
                         print(f"[skip existing] {tag}")
                         continue
                     t0 = time.time()
-                    res = run_cell(arch, shape, mp, device=args.device)
+                    res = run_cell(arch, shape, mp, device=args.device,
+                                   microbatches=args.microbatches)
                     res["wall_s"] = round(time.time() - t0, 1)
                     with open(path, "w") as f:
                         json.dump(res, f, indent=1)
@@ -424,10 +442,13 @@ def main(argv=None):
                     extra = ""
                     if status == "ok":
                         r = res["roofline"]
+                        ma = res["memory_analysis"]
                         extra = (f" dominant={r['dominant']}"
                                  f" frac={r['roofline_fraction']:.2f}"
-                                 f" mem/dev={res['memory_analysis']['per_device_bytes']/2**30:.2f}GiB"
-                                 f" compile={res['compile_s']:.0f}s")
+                                 f" mem/dev={ma['per_device_bytes']/2**30:.2f}GiB"
+                                 f" args={ma['argument_bytes']}"
+                                 f" compile={res['compile_s']:.0f}s"
+                                 f" wall={res['wall_s']}s")
                     elif status == "error":
                         extra = " " + res["error"][:120]
                     print(f"[{status}] {tag}{extra}", flush=True)

@@ -288,10 +288,12 @@ def _grouped_decode(q, k, v, n_kv: int, pos: int):
 
 def _decode_on_blocks(q, k, v, cfg: AttnConfig, pos: int):
     """`_grouped_decode` on each rank's (batch, heads) block (B_l, 1, H_l,
-    D), for query heads split over more ranks than there are kv heads:
-    DTensor's ``aten.view`` refuses to group such heads per kv head
-    (uneven unflatten), so each rank groups its own heads against the kv
-    heads they meet (`_kv_for_heads`)."""
+    D): each rank groups its own heads against the kv heads they meet
+    (`_kv_for_heads`).  DTensor's ``aten.view`` refuses to group query
+    heads split over more ranks than there are kv heads per kv head
+    (uneven unflatten), and torch 2.11's refuses the grouped einsum's
+    flatten of a block whose kv-head dim is split ("flatten multiple
+    dimensions ... being sharded"), an even split too."""
     qpl, kpl, q_off, kv_off = _block_placements(q, k, cfg)
     group = cfg.n_heads // cfg.n_kv_heads
 
@@ -330,7 +332,7 @@ def attention_decode(params, cfg: AttnConfig, x: torch.Tensor, cache,
         raise ValueError(f"cache_update {cache_update!r}: expected 'dus' "
                          f"or 'blend'")
 
-    if isinstance(q, DTensor) and cfg.n_kv_heads % _head_ways(q):
+    if isinstance(q, DTensor):
         out = _decode_on_blocks(q, k_cache, v_cache, cfg, pos)
     else:
         out = _grouped_decode(q, k_cache, v_cache, cfg.n_kv_heads, pos)

@@ -302,9 +302,12 @@ def _dots_policy(ctx, op, *args, **kwargs):
 def _remat(fn, policy: str):
     """``"none"`` keeps every activation; ``"full"`` keeps the unit's
     inputs and recomputes the rest in the backward; ``"dots"`` also keeps
-    the matrix products' outputs.  All three give the same gradients."""
+    the matrix products' outputs.  All three give the same gradients.
+    The recompute runs under the forward's mesh rules
+    (`shd.bind_mesh_rules`)."""
     if policy == "none":
         return fn
+    fn = shd.bind_mesh_rules(fn)
     if policy == "full":
         return functools.partial(ckpt_util.checkpoint, fn,
                                  use_reentrant=False)

@@ -12,10 +12,13 @@ The semantics are the JAX function's: capacity ``C = max(1, int(cf * K *
 S / E))`` with E the padded expert count, a token's slot in its expert
 counted over the flattened (S*K) axis (s major, k minor), over-capacity
 slots dropped, the shared expert on every token, the router, the shared
-gate and the aux losses in f32.  The expert-parallel hints
-(`distributed.sharding.shard_hint`) sit where the JAX module's do.  The
-router, the dispatch, the expert SwiGLU and the combine are torch ops:
-the JAX package computes them outside any Pallas kernel too.
+gate and the aux losses in f32.  On a mesh the dispatch, the experts and
+the combine run on each rank's (batch, expert) block, the placements of
+the JAX module's expert-parallel hints (`_experts_on_blocks`); its hint
+on the output (`distributed.sharding.shard_hint`) sits where the JAX
+module's does.  The router, the dispatch, the expert SwiGLU and the
+combine are torch ops: the JAX package computes them outside any Pallas
+kernel too.
 """
 
 from __future__ import annotations
@@ -100,23 +103,76 @@ def _expert_ffn(xe, wg, wu, wd):
     (B,E,C,D)."""
     h = F.silu(torch.einsum("becd,edf->becf", xe, wg)) * \
         torch.einsum("becd,edf->becf", xe, wu)
-    h = shard_hint(h, "batch", "expert", "null", "mlp_ep")
     return torch.einsum("becf,efd->becd", h, wd)
 
 
-def _experts_on_blocks(xe, wg, wu, wd):
-    """`_expert_ffn` on each rank's (batch, expert) block of DTensors.
-    DTensor's einsum of a batch-sharded buffer with the expert weights
-    permutes and then calls ``aten.view`` on a local block that the
-    permute left non-contiguous, which raises; so the weights are
-    redistributed explicitly to the buffer's expert placements (gathered
-    over their FSDP "embed" dim, as GSPMD gathers them) and the three
-    einsums run on the local blocks."""
-    xpl = [p if p in (Shard(0), Shard(1)) else Replicate()
-           for p in xe.placements]
-    wpl = [Shard(0) if p == Shard(1) else Replicate() for p in xpl]
-    return shd.on_blocks(_expert_ffn, (xpl, wpl, wpl, wpl), xpl,
-                         xe, wg, wu, wd)
+def _dispatch_combine(impl: str, C: int, xc, gate_vals, onehot, pos_clip,
+                      within_cap, wg, wu, wd):
+    """The dispatch into the capacity buffers, the experts and the combine:
+    ``xc`` (B,S,D) in the compute dtype, the routing (B,S,K) ``gate_vals``
+    and (B,S,K,E) ``onehot``, ``pos_clip``, ``within_cap``, and the expert
+    weights, with E the experts held here (all of them, or one rank's
+    block of them): (B,S,D), the sum over those experts.  A (b,s,k) routed
+    to an expert not held here scatters a zero row and gathers nothing."""
+    B, S, D = xc.shape
+    E = wg.shape[0]
+    cd = xc.dtype
+    if impl == "sorted":
+        sel_pos = (pos_clip * onehot).sum(-1)                 # (B,S,K)
+        sel_cap = (within_cap & (onehot > 0)).any(-1)         # (B,S,K)
+        dest = onehot.argmax(-1) * C + sel_pos                # (B,S,K)
+        xk = xc[:, :, None, :] * sel_cap[..., None].to(cd)    # (B,S,K,D)
+        bidx = torch.arange(B, device=xc.device)[:, None, None].expand_as(
+            dest)
+        xe = torch.zeros((B, E * C, D), dtype=cd, device=xc.device
+                         ).index_put((bidx, dest), xk, accumulate=True
+                                     ).reshape(B, E, C, D)
+        ye = _expert_ffn(xe, wg, wu, wd)
+        gathered = ye.reshape(B, E * C, D)[bidx, dest]        # (B,S,K,D)
+        w = (gate_vals.to(cd) * sel_cap.to(cd))[..., None]
+        return (gathered * w).sum(dim=2)
+    disp = ((pos_clip[..., None] == torch.arange(C, device=xc.device))
+            & within_cap[..., None]).to(cd)                   # (B,S,K,E,C)
+    dispatch = disp.sum(2)                                    # (B,S,E,C)
+    combine = (disp * gate_vals[..., None, None].to(cd)).sum(2)
+    del disp
+    ye = _expert_ffn(torch.einsum("bsd,bsec->becd", xc, dispatch),
+                     wg, wu, wd)
+    return torch.einsum("becd,bsec->bsd", ye, combine)
+
+
+def _experts_on_blocks(impl: str, C: int, xc, gate_vals, onehot, pos_clip,
+                       within_cap, wg, wu, wd):
+    """`_dispatch_combine` on each rank's (batch, expert) block of
+    DTensors: the rows of the batch ``xc`` splits, the experts the weights
+    split over "model" (EP), each rank's output its experts' part of the
+    sum (``Partial`` over the expert dims).  These are the placements of
+    the JAX module's hints on the capacity buffer (batch, expert) and the
+    expert FFN.  DTensor refuses the dispatch's ops on a real split:
+    torch 2.11 raises on ``aten.index_put`` into the sorted dispatch's
+    buffer (a ``Shard(-1)`` its rule does not normalize) and on the
+    ``aten._unsafe_view`` the combine einsum makes of a buffer whose
+    expert dim is split ("flatten multiple dimensions ... being
+    sharded"); and DTensor's einsum of the batch-sharded buffer with the
+    expert weights calls ``aten.view`` on a block its permute left
+    non-contiguous (torch 2.13).  The weights are gathered over their
+    FSDP "embed" dim here, one layer at a time, as GSPMD gathers them in
+    the JAX scan's body.  The routing (``onehot``,
+    ``pos_clip``, ``within_cap``) arrives whole along the sequence: a
+    token's slot is a cumsum over its row."""
+    from torch.distributed.tensor import Partial
+    batch = [p == Shard(0) for p in xc.placements]
+    expert = [p == Shard(0) for p in wg.placements]
+    xpl = [Shard(0) if b else Replicate() for b in batch]
+    rpl = [Shard(0) if b else Shard(3) if e else Replicate()
+           for b, e in zip(batch, expert)]
+    wpl = [Shard(0) if e else Replicate() for e in expert]
+    opl = [Shard(0) if b else Partial() if e else Replicate()
+           for b, e in zip(batch, expert)]
+    return shd.on_blocks(
+        lambda *a: _dispatch_combine(impl, C, *a),
+        (xpl, xpl, rpl, rpl, rpl, wpl, wpl, wpl), opl,
+        xc, gate_vals, onehot, pos_clip, within_cap, wg, wu, wd)
 
 
 def moe_block(params, cfg: MoeConfig, x: torch.Tensor,
@@ -134,7 +190,9 @@ def moe_block(params, cfg: MoeConfig, x: torch.Tensor,
       impl="sorted": each (b,s,k) scattered into its slot ``e*C + pos`` of
         a (B, E*C, D) buffer and gathered back; a live slot receives
         exactly one token, and a dropped (b,s,k) adds a zero row to slot
-        ``e*C + C-1``, so the order of the additions changes no sum.
+        ``e*C + C-1`` (on a rank's expert block, a (b,s,k) routed to
+        another rank's expert one to slot 0), so the order of the
+        additions changes no sum.
 
     The choice of experts is a stable descending sort of the router
     probabilities: ties go to the lower expert index, as in
@@ -169,41 +227,16 @@ def moe_block(params, cfg: MoeConfig, x: torch.Tensor,
     pos_clip = torch.clamp(pos_in_expert, 0, C - 1)
     xc = cast(x, cd)
 
-    if impl == "sorted":
-        sel_pos = (pos_clip * onehot).sum(-1)                 # (B,S,K)
-        sel_cap = (within_cap & (onehot > 0)).any(-1)         # (B,S,K)
-        dest = gate_idx * C + sel_pos                         # (B,S,K)
-        xk = xc[:, :, None, :] * sel_cap[..., None].to(cd)    # (B,S,K,D)
-        bidx = torch.arange(B, device=x.device)[:, None, None].expand_as(
-            dest)
-        xe_flat = torch.zeros((B, E * C, D), dtype=cd,
-                              device=x.device).index_put(
-            (bidx, dest), xk, accumulate=True)
-        xe = xe_flat.reshape(B, E, C, D)
-    else:
-        disp = ((pos_clip[..., None]
-                 == torch.arange(C, device=x.device))
-                & within_cap[..., None]).to(cd)               # (B,S,K,E,C)
-        dispatch = disp.sum(2)                                # (B,S,E,C)
-        combine = (disp * gate_vals[..., None, None].to(cd)).sum(2)
-        del disp
-        xe = torch.einsum("bsd,bsec->becd", xc, dispatch)
-    xe = shard_hint(xe, "batch", "expert", "null", "embed_act")
-
-    # expert FFN (SwiGLU), the expert axis over "model" on a mesh
+    # dispatch, expert FFN (SwiGLU), combine; on a mesh the expert axis
+    # over "model"
     wg, wu, wd = (cast(params["w_gate"], cd), cast(params["w_up"], cd),
                   cast(params["w_down"], cd))
-    if isinstance(xe, DTensor):
-        ye = _experts_on_blocks(xe, wg, wu, wd)
+    if isinstance(xc, DTensor):
+        out = _experts_on_blocks(impl, C, xc, gate_vals, onehot, pos_clip,
+                                 within_cap, wg, wu, wd)
     else:
-        ye = _expert_ffn(xe, wg, wu, wd)
-
-    if impl == "sorted":
-        gathered = ye.reshape(B, E * C, D)[bidx, dest]        # (B,S,K,D)
-        w = (gate_vals.to(cd) * sel_cap.to(cd))[..., None]
-        out = (gathered * w).sum(dim=2)
-    else:
-        out = torch.einsum("becd,bsec->bsd", ye, combine)
+        out = _dispatch_combine(impl, C, xc, gate_vals, onehot, pos_clip,
+                                within_cap, wg, wu, wd)
     out = shard_hint(out, "batch", "seq", "embed_act")
 
     if cfg.d_ff_shared:

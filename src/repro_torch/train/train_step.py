@@ -25,6 +25,7 @@ returned functions run eagerly, op by op.
 from __future__ import annotations
 
 import dataclasses
+import re
 from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -218,10 +219,8 @@ def _live_rules(rules, mesh):
     """``rules`` without the mesh dims of size one: such a dim splits
     nothing, so a logical axis mapped only to it is replicated, as
     `distributed.sharding.resolve` drops the dims a mesh lacks.  On the
-    card's 1 x 1 mesh every placement is then ``Replicate``: torch 2.11's
-    DTensor refuses some ops on a ``Shard`` over a dim of size one (a
-    flatten across a sharded dim, ``aten.index_put`` with batch-sharded
-    values) that it runs replicated, with the same local blocks."""
+    card's 1 x 1 mesh every placement is then ``Replicate``, and the
+    sharded step runs the local blocks the unsharded step runs."""
     one = {n for n, k in zip(mesh.mesh_dim_names, mesh.shape) if k == 1}
 
     def keep(m):
@@ -240,6 +239,10 @@ def _live(shardings, mesh):
                                 for m, p in enumerate(pl)], shardings)
 
 
+# the routed experts' weights, which `_fsdp_gathered` leaves on their shards
+_EXPERTS = re.compile(r"moe/w_(gate|up|down)$")
+
+
 def _fsdp_gathered(params, mesh, rules):
     """Each DTensor parameter with its shards over the batch's mesh dims
     (FSDP: "embed" over "data") gathered, its other placements kept, as
@@ -247,20 +250,26 @@ def _fsdp_gathered(params, mesh, rules):
     gather reduce-scatters its gradient onto the shard.  Left to itself,
     DTensor's matmul rule may meet a weight's data-sharded contraction dim
     by moving the data-sharded activations instead, which moves rows of
-    the batch between data ranks."""
+    the batch between data ranks.  The routed experts' weights stay on
+    their shards: the MoE block gathers them layer by layer on its blocks
+    (`moe._experts_on_blocks`), inside the layer's remat, as the JAX scan
+    gathers a layer's weights in its body (gathered all at once,
+    llama4-scout-17b-a16e's 48 layers of one expert a rank are 24 GB in
+    f32)."""
     from torch.distributed.tensor import DTensor, Replicate
     spec = shd.resolve(rules, mesh, "batch")[0]
     names = spec if isinstance(spec, tuple) else (() if spec is None
                                                   else (spec,))
     dims = {mesh.mesh_dim_names.index(n) for n in names}
 
-    def one(p):
+    def one(path, p):
         if not isinstance(p, DTensor) or not any(
-                p.placements[m].is_shard() for m in dims):
+                p.placements[m].is_shard() for m in dims) or \
+                _EXPERTS.search(shd.path_str(path)):
             return p
         return p.redistribute(mesh, [Replicate() if m in dims else q
                                      for m, q in enumerate(p.placements)])
-    return tree_map(one, params)
+    return tree_map_with_path(one, params)
 
 
 def build_train_step(cfg: ArchConfig, hyper: TrainHyper, mesh=None):

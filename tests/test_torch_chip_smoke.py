@@ -114,3 +114,38 @@ def test_param_count_gap_is_what_count_params_leaves_out(smoke, arch):
         assert g["gap"] == smoke.HUBERT_GAP == 48 * 1280 * 5120 + 124_160
     with pytest.raises(AssertionError, match="built"):
         smoke.param_count_gap(cfg, built + 1)
+
+
+def test_path_ix_runs_the_moe_encoder_and_vlm_cells(smoke):
+    """Path (ix)'s cells: the dense and hybrid four, then qwen2-moe-a2.7b
+    under both dispatches and llama4-scout-17b-a16e training (2
+    microbatches each), and the hubert-xlarge and pixtral-12b prefills;
+    each has its golden record at its microbatches and at the default
+    ones."""
+    import json
+    from tests import torch_goldens as tg
+    assert smoke.DRYRUN_RUN == (
+        ("qwen2.5-14b", "train_4k", False, 2, "gshard"),
+        ("qwen2.5-14b", "train_4k", True, 2, "gshard"),
+        ("zamba2-2.7b", "prefill_32k", False, None, "gshard"),
+        ("qwen2.5-14b", "decode_32k", False, None, "gshard"),
+        ("qwen2-moe-a2.7b", "train_4k", False, 2, "gshard"),
+        ("qwen2-moe-a2.7b", "train_4k", False, 2, "sorted"),
+        ("llama4-scout-17b-a16e", "train_4k", False, 2, "gshard"),
+        ("hubert-xlarge", "prefill_32k", False, None, "gshard"),
+        ("pixtral-12b", "prefill_32k", False, None, "gshard"))
+    full = json.loads(smoke.DRYRUN_GOLDEN.read_text())["full"]
+    for arch, shape, mp, nm, impl in smoke.DRYRUN_RUN:
+        rec = full[tg.dryrun_cell_name(arch, shape, mp, nm, impl)]
+        default = full[tg.dryrun_cell_name(arch, shape, mp, moe_impl=impl)]
+        assert rec["memory_analysis"]["argument_bytes"] == \
+            default["memory_analysis"]["argument_bytes"]
+        assert rec["analytic"]["microbatches"] == (nm or 1)
+
+
+@pytest.mark.parametrize("arch,launches", [
+    ("zamba2-2.7b", {"flash_attention": 9, "ssd_scan": 216}),
+    ("hubert-xlarge", {"flash_attention": 48}),
+    ("pixtral-12b", {"flash_attention": 40})])
+def test_path_ix_prefill_launches(smoke, arch, launches):
+    assert smoke.dryrun_launches(arch) == launches

@@ -86,11 +86,12 @@ def cells():
     torch.set_num_threads(1)
     out = {}
     try:
-        for arch, spec, mp, nm in DRYRUN_CELLS:
+        for arch, spec, mp, nm, impl in DRYRUN_CELLS:
             shape = ShapeSpec(*spec)
-            hyper = (ts.TrainHyper(microbatches=nm, compress_cross_pod=mp)
+            hyper = (ts.TrainHyper(microbatches=nm, compress_cross_pod=mp,
+                                   moe_impl=impl)
                      if shape.kind == "train" else None)
-            out[dryrun_cell_name(arch, shape.name, mp)] = \
+            out[dryrun_cell_name(arch, shape.name, mp, moe_impl=impl)] = \
                 dryrun.compile_cell(reduced_config(
                     get_config(arch), d_model=DRYRUN_D_MODEL.get(arch, 128)),
                     shape, mp, hyper, device="cpu")
@@ -100,11 +101,11 @@ def cells():
     return out
 
 
-@pytest.mark.parametrize("arch,spec,mp,nm", DRYRUN_CELLS,
-                         ids=[dryrun_cell_name(a, s[0], mp)
-                              for a, s, mp, _ in DRYRUN_CELLS])
-def test_reduced_cell_equals_jax(cells, golden, arch, spec, mp, nm):
-    name = dryrun_cell_name(arch, spec[0], mp)
+@pytest.mark.parametrize("arch,spec,mp,nm,impl", DRYRUN_CELLS,
+                         ids=[dryrun_cell_name(a, s[0], mp, moe_impl=i)
+                              for a, s, mp, _, i in DRYRUN_CELLS])
+def test_reduced_cell_equals_jax(cells, golden, arch, spec, mp, nm, impl):
+    name = dryrun_cell_name(arch, spec[0], mp, moe_impl=impl)
     got, want = cells[name], golden["cells"][name]
     beside = (f"{name}: collectives by kind, port {got['collectives']} "
               f"beside JAX {want['collectives']}")

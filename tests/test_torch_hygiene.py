@@ -84,7 +84,7 @@ EXTRA = {"repro_torch.models.lm": {"params_from_numpy", "caches_from_numpy"},
          "repro_torch.tpuprobe.vmem_probe": {"NOMINAL_SMEM"},
          "repro_torch.distributed.sharding": {
              "placements", "distribute_tree", "gather_tree", "block_offset",
-             "on_blocks", "reduce_partial"},
+             "on_blocks", "reduce_partial", "bind_mesh_rules"},
          "repro_torch.launch.roofline": {"count_collectives"},
          "repro_torch.train.train_step": {"train_state_from_numpy"}}
 

@@ -97,37 +97,51 @@ def sharded_rows(data: dict, nm: int) -> dict:
     """The rows of ``data`` a step of ``nm`` microbatches takes."""
     return {k: v[:nm * SHARDED_MICRO] for k, v in data.items()}
 # The dry run's reduced cells: (arch, (shape name, seq, batch, kind),
-# multi_pod, microbatches), each on `reduced_config(arch, d_model=
-# DRYRUN_D_MODEL.get(arch, 128))`; train cells with TrainHyper(
-# microbatches, compress_cross_pod=multi_pod).  Reduced zamba2 takes
-# d_model 256 for 16 SSM heads: XLA refuses to split its 8 heads at
-# d_model 128 over the 16 "model" devices.  The single-pod train shape
-# gives the hillclimb's default 2 microbatches the dry run's rows (so its
-# baseline repeats the dry run's ops); the 2 x 16 x 16 mesh needs twice
-# the batch for 2 microbatches.  The full-width cells: (arch, shape name,
-# multi_pod, microbatches), None for `compile_cell`'s default (8 for
-# train_4k); `chip_smoke.py` runs the train cells at 2 microbatches, a
-# quarter of the host time of 8, and holds their argument bytes (which the
-# microbatches do not change) to both.  The hillclimb's variants run on
-# reduced qwen1.5-0.5b at DRYRUN_TRAIN, and at full width the one
-# `chip_smoke.py` runs (HILLCLIMB_FULL).
+# multi_pod, microbatches, moe dispatch), each on `reduced_config(arch,
+# d_model=DRYRUN_D_MODEL.get(arch, 128))`; train cells with TrainHyper(
+# microbatches, compress_cross_pod=multi_pod, moe_impl).  Reduced zamba2
+# takes d_model 256 for 16 SSM heads: XLA refuses to split its 8 heads at
+# d_model 128 over the 16 "model" devices; reduced pixtral-12b takes
+# d_model 160, where its d_ff (2.8 x d_model) is a multiple of 16 (358 at
+# d_model 128 is not).  The single-pod train shape gives the hillclimb's
+# default 2 microbatches the dry run's rows (so its baseline repeats the
+# dry run's ops); the 2 x 16 x 16 mesh needs twice the batch for 2
+# microbatches.  The full-width cells: (arch, shape name, multi_pod,
+# microbatches, moe dispatch), None for `compile_cell`'s default (8 for
+# train_4k, 16 for the moe family); `chip_smoke.py` runs the train cells
+# at 2 microbatches, a quarter of the host time of 8, and holds their
+# argument bytes (which the microbatches do not change) to both.  The
+# hillclimb's variants run on reduced qwen1.5-0.5b at DRYRUN_TRAIN, and at
+# full width the one `chip_smoke.py` runs (HILLCLIMB_FULL).
 DRYRUN_TRAIN = ("dry_train", 64, 32, "train")
-DRYRUN_CELLS = (("qwen1p5_0p5b", DRYRUN_TRAIN, False, 2),
+DRYRUN_PREFILL = ("dry_prefill", 64, 32, "prefill")
+DRYRUN_CELLS = (("qwen1p5_0p5b", DRYRUN_TRAIN, False, 2, "gshard"),
                 ("qwen1p5_0p5b", ("dry_train_pods", 64, 64, "train"), True,
-                 2),
-                ("qwen1p5_0p5b", ("dry_prefill", 64, 32, "prefill"), False,
-                 1),
-                ("qwen1p5_0p5b", ("dry_decode", 64, 32, "decode"), False, 1),
-                ("qwen2_moe_a2p7b", DRYRUN_TRAIN, False, 1),
-                ("zamba2_2p7b", ("dry_prefill", 64, 32, "prefill"), False,
-                 1))
-DRYRUN_D_MODEL = {"zamba2_2p7b": 256}
-DRYRUN_FULL = (("qwen2.5-14b", "train_4k", False, None),
-               ("qwen2.5-14b", "train_4k", True, None),
-               ("qwen2.5-14b", "train_4k", False, 2),
-               ("qwen2.5-14b", "train_4k", True, 2),
-               ("qwen2.5-14b", "decode_32k", False, None),
-               ("zamba2-2.7b", "prefill_32k", False, None))
+                 2, "gshard"),
+                ("qwen1p5_0p5b", DRYRUN_PREFILL, False, 1, "gshard"),
+                ("qwen1p5_0p5b", ("dry_decode", 64, 32, "decode"), False, 1,
+                 "gshard"),
+                ("qwen2_moe_a2p7b", DRYRUN_TRAIN, False, 1, "gshard"),
+                ("zamba2_2p7b", DRYRUN_PREFILL, False, 1, "gshard"),
+                ("qwen2_moe_a2p7b", DRYRUN_TRAIN, False, 1, "sorted"),
+                ("llama4_scout_17b_a16e", DRYRUN_TRAIN, False, 1, "gshard"),
+                ("hubert_xlarge", DRYRUN_TRAIN, False, 2, "gshard"),
+                ("pixtral_12b", DRYRUN_PREFILL, False, 1, "gshard"))
+DRYRUN_D_MODEL = {"zamba2_2p7b": 256, "pixtral_12b": 160}
+DRYRUN_FULL = (("qwen2.5-14b", "train_4k", False, None, "gshard"),
+               ("qwen2.5-14b", "train_4k", True, None, "gshard"),
+               ("qwen2.5-14b", "train_4k", False, 2, "gshard"),
+               ("qwen2.5-14b", "train_4k", True, 2, "gshard"),
+               ("qwen2.5-14b", "decode_32k", False, None, "gshard"),
+               ("zamba2-2.7b", "prefill_32k", False, None, "gshard"),
+               ("qwen2-moe-a2.7b", "train_4k", False, None, "gshard"),
+               ("qwen2-moe-a2.7b", "train_4k", False, 2, "gshard"),
+               ("qwen2-moe-a2.7b", "train_4k", False, None, "sorted"),
+               ("qwen2-moe-a2.7b", "train_4k", False, 2, "sorted"),
+               ("llama4-scout-17b-a16e", "train_4k", False, None, "gshard"),
+               ("llama4-scout-17b-a16e", "train_4k", False, 2, "gshard"),
+               ("hubert-xlarge", "prefill_32k", False, None, "gshard"),
+               ("pixtral-12b", "prefill_32k", False, None, "gshard"))
 HILLCLIMB_FULL = ("qwen2.5-14b", "train_4k", "seqpar+mb2", False)
 # cells the dry run skips: long_500k on a pure-attention arch, a decode
 # on the encoder
@@ -142,9 +156,11 @@ HYPER_FIELDS = ("microbatches", "remat", "compress_cross_pod", "impl",
 
 
 def dryrun_cell_name(arch: str, shape_name: str, multi_pod: bool,
-                     microbatches=None) -> str:
+                     microbatches=None, moe_impl: str = "gshard") -> str:
     mb = f"_mb{microbatches}" if microbatches else ""
-    return f"{arch}_{shape_name}{mb}_{'multi' if multi_pod else 'single'}"
+    impl = "" if moe_impl == "gshard" else f"_{moe_impl}"
+    return (f"{arch}_{shape_name}{mb}{impl}_"
+            f"{'multi' if multi_pod else 'single'}")
 
 
 SHARD_GUESTS = (8, 64, 256)
@@ -363,26 +379,30 @@ def _dryrun() -> dict:
                     h = hillclimb.hyper_for(variant, cfg, shape, mp)
                     out["hyper_for"][f"{mkey}/{variant}"] = {
                         f: getattr(h, f) for f in HYPER_FIELDS}
-    for arch, spec, mp, nm in DRYRUN_CELLS:
+    for arch, spec, mp, nm, impl in DRYRUN_CELLS:
         cfg = reduced_config(get_config(arch),
                              d_model=DRYRUN_D_MODEL.get(arch, 128))
         shape = ShapeSpec(*spec)
-        hyper = (jts.TrainHyper(microbatches=nm, compress_cross_pod=mp)
+        hyper = (jts.TrainHyper(microbatches=nm, compress_cross_pod=mp,
+                                moe_impl=impl)
                  if shape.kind == "train" else None)
         rec = dryrun.compile_cell(cfg, shape, mp, hyper)
         rec["collectives"].pop("ops")
-        out["cells"][dryrun_cell_name(arch, shape.name, mp)] = _jsonable(rec)
-    for arch, shape_name, mp, nm in DRYRUN_FULL:
-        if nm is None:
+        out["cells"][dryrun_cell_name(arch, shape.name, mp, moe_impl=impl)] \
+            = _jsonable(rec)
+    for arch, shape_name, mp, nm, impl in DRYRUN_FULL:
+        cfg, shape = get_config(arch), SHAPE_BY_NAME[shape_name]
+        if nm is None and impl == "gshard":
             rec = dryrun.run_cell(arch, shape_name, mp)
         else:
-            rec = dryrun.compile_cell(
-                get_config(arch), SHAPE_BY_NAME[shape_name], mp,
-                jts.TrainHyper(microbatches=nm, compress_cross_pod=mp))
+            rec = dryrun.compile_cell(cfg, shape, mp, jts.TrainHyper(
+                microbatches=nm or dryrun.default_microbatches(cfg, shape,
+                                                               mp),
+                compress_cross_pod=mp, moe_impl=impl))
         if rec["status"] != "ok":
             raise RuntimeError(f"{arch} {shape_name}: {rec}")
         rec["collectives"].pop("ops")
-        out["full"][dryrun_cell_name(arch, shape_name, mp, nm)] = \
+        out["full"][dryrun_cell_name(arch, shape_name, mp, nm, impl)] = \
             _jsonable(rec)
     out["hillclimb_full"] = _jsonable(hillclimb.run(*HILLCLIMB_FULL,
                                                     show_top=False))
