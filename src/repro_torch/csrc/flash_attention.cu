@@ -11,9 +11,9 @@
 // causal mask is q_pos >= k_pos with both counted from 0, masked scores are
 // NEG_INF = -1e30 as in the Pallas kernel, and the final division floors the
 // softmax sum at 1e-30 (kernel.py:26, :75-77).  Keys past Sk and query rows
-// past Sq are masked here, for any Sq and Sk, and any D from 1 to 160 (the
-// Pallas kernel takes any D; 160 is pixtral-12b's, the widest of the
-// registered configs).
+// past Sq are masked here, for any Sq and Sk, and any D >= 1, as the Pallas
+// kernel takes them; a batch or query-block count past the 65,535 of a
+// grid's y and z takes several grids.
 //
 // What bounds it on an H100: operations.  Causal prefill at B = 2, 32 heads,
 // S = 2048, D = 80 does 4*B*H*D*S*(S+1)/2 = 43 GFLOP over 84 MB of q, k, v
@@ -57,9 +57,28 @@
 // shared memory for 64 FMAs of S.  P goes through shared memory (a row's
 // eight threads share one warp, so a __syncwarp orders it) and O += P.V
 // reads 4 float4s of P and float2s of V for 16 FMAs each.
+//
+// Wide heads (head dim padded to 16 above 160).  The tiles above stop
+// fitting there: the bf16 ring takes 2 (128 + 2 * 3 * 64) DP + 1024 bytes
+// of shared memory, over the 232,448 a block may have above DP 224; its O
+// accumulator takes DP / 2 registers a thread and `wgmma` N stops at 256;
+// the f32 kernel holds 254 registers at DP 160 and its tiles pass the
+// limit above DP 192.  So a wide block owns 128 query rows and one slice
+// of kDV = 128 columns of O, in either dtype.  It walks the key tiles as
+// above, but S = Q.K^T sums over the head dim in chunks (64 columns in
+// bf16, 32 in f32) that stream through a ring of shared memory, one chunk
+// a step; after a tile's last chunk the same online softmax as the narrow
+// paths, then O_slice += P.V_slice.  The ceil(D / 128) blocks of one query
+// block each compute the same S in the same order, so their softmax
+// statistics are equal bit for bit and each writes its own columns; S is
+// computed once a slice.  Q stays in shared memory for the whole walk where
+// it fits (`kQResBf16`, `kQResF32`); past that its chunks stream beside K's,
+// so no head dim is refused.  Each step waits for its own products (no
+// overlap of the softmax with the tensor cores): right first, not fast.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <algorithm>
 #include <cstdint>
 
 namespace {
@@ -72,6 +91,13 @@ constexpr float kLog2e = 1.4426950408889634f;
 struct Strides {  // in elements: batch, head, sequence
   int64_t b, h, s;
 };
+
+// The grid is (head [x slice of O's columns], batch, query block), the
+// heaviest query blocks (the last ones) first.  gridDim.y and z stop at
+// 65,535, so the launcher covers a larger batch or query-block count with
+// several grids: each names its first batch b0 and the index of its first
+// (heaviest) query block, ztop.
+constexpr unsigned kMaxGridYZ = 65535;
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -467,6 +493,78 @@ __device__ __forceinline__ void load_atoms(unsigned char* dst,
   }
 }
 
+// The online softmax of one 64-key tile on a warp's S fragment (rows wq0
+// + g and wq0 + g + 8 of the warp's 16; keys k0 + 8n + 2t + (e & 1)): masks
+// keys at or past Sk and, when causal, above the diagonal (only on an
+// `edge` tile); takes the new row maxima in log2 units, P = 2^(S sl2 - m)
+// in place and this thread's share of the row sums; c0 and c1 rescale O.
+__device__ __forceinline__ void softmax_bf16(float (&s)[32], float& m0,
+                                             float& m1, float& l0, float& l1,
+                                             float& c0, float& c1, bool edge,
+                                             int k0, int wq0, int g, int t,
+                                             int Sk, int causal, float sl2) {
+  float mx0 = kNegInf, mx1 = kNegInf;
+#pragma unroll
+  for (int n = 0; n < 8; ++n) {
+    if (edge) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int kpos = k0 + n * 8 + 2 * t + (e & 1);
+        const int qpos = wq0 + g + (e >> 1) * 8;
+        if (kpos >= Sk || (causal && qpos < kpos)) s[n * 4 + e] = kNegInf;
+      }
+    }
+    mx0 = fmaxf(mx0, fmaxf(s[n * 4], s[n * 4 + 1]));
+    mx1 = fmaxf(mx1, fmaxf(s[n * 4 + 2], s[n * 4 + 3]));
+  }
+  mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+  mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+  mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+  mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+  const float mn0 = fmaxf(m0, mx0 * sl2), mn1 = fmaxf(m1, mx1 * sl2);
+  c0 = ex2(m0 - mn0);
+  c1 = ex2(m1 - mn1);
+  m0 = mn0;
+  m1 = mn1;
+  float rs0 = 0.f, rs1 = 0.f;
+#pragma unroll
+  for (int n = 0; n < 8; ++n) {
+    s[n * 4 + 0] = ex2(fmaf(s[n * 4 + 0], sl2, -mn0));
+    s[n * 4 + 1] = ex2(fmaf(s[n * 4 + 1], sl2, -mn0));
+    s[n * 4 + 2] = ex2(fmaf(s[n * 4 + 2], sl2, -mn1));
+    s[n * 4 + 3] = ex2(fmaf(s[n * 4 + 3], sl2, -mn1));
+    rs0 += s[n * 4 + 0] + s[n * 4 + 1];
+    rs1 += s[n * 4 + 2] + s[n * 4 + 3];
+  }
+  l0 = l0 * c0 + rs0;  // this thread's share; summed over the quad last
+  l1 = l1 * c1 + rs1;
+}
+
+// P (bf16, rounded in registers) as the A fragments of P.V: the accumulator
+// layout of S is the A-fragment layout of P
+__device__ __forceinline__ void pack_p(uint32_t (&pa)[4][4],
+                                       const float (&s)[32]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    pa[kk][0] = pack_bf16(s[8 * kk + 0], s[8 * kk + 1]);
+    pa[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+    pa[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+    pa[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+  }
+}
+
+// O's rows g and g + 8 of a warp's accumulator times c0 and c1
+template <int N>
+__device__ __forceinline__ void rescale(float (&acc)[N], float c0, float c1) {
+#pragma unroll
+  for (int j = 0; j < N / 4; ++j) {
+    acc[j * 4 + 0] *= c0;
+    acc[j * 4 + 1] *= c0;
+    acc[j * 4 + 2] *= c1;
+    acc[j * 4 + 3] *= c1;
+  }
+}
+
 // DP: head dim padded to a multiple of 16.  Two warpgroups of 64 query
 // rows; a warp owns 16 of them, as the wgmma accumulator lays them out.
 template <int DP>
@@ -474,9 +572,9 @@ __global__ void __launch_bounds__(kThreads, DP <= 96 ? 2 : 1)
     flash_bf16(const __nv_bfloat16* __restrict__ q,
                const __nv_bfloat16* __restrict__ k,
                const __nv_bfloat16* __restrict__ v,
-               __nv_bfloat16* __restrict__ o, int Hq, int Hkv, int Sq, int Sk,
-               int D, Strides qs, Strides ks, Strides vs, Strides os,
-               int causal, float scale, int vec) {
+               __nv_bfloat16* __restrict__ o, int b0, int ztop, int Hq,
+               int Hkv, int Sq, int Sk, int D, Strides qs, Strides ks,
+               Strides vs, Strides os, int causal, float scale, int vec) {
   constexpr int TILE = kBKh * DP * 2;  // bytes of one K or V tile
   constexpr int SBO = (DP / 16) * 256; // bytes between 8-row groups
   extern __shared__ unsigned char smem_raw[];
@@ -485,8 +583,8 @@ __global__ void __launch_bounds__(kThreads, DP <= 96 ? 2 : 1)
   unsigned char* Ks = Qs + kBQ * DP * 2;     // kStages tiles
   unsigned char* Vs = Ks + kStages * TILE;   // kStages tiles
 
-  const int h = blockIdx.x, b = blockIdx.y;
-  const int q0 = (gridDim.z - 1 - blockIdx.z) * kBQ;  // heaviest first
+  const int h = blockIdx.x, b = b0 + blockIdx.y;
+  const int q0 = (ztop - (int)blockIdx.z) * kBQ;  // heaviest first
   const int hk = h / (Hq / Hkv);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
@@ -566,57 +664,14 @@ __global__ void __launch_bounds__(kThreads, DP <= 96 ? 2 : 1)
       }
       pin(s);
       const bool edge = (causal && k0 + kBKh - 1 > wq0) || k0 + kBKh > Sk;
-      float mx0 = kNegInf, mx1 = kNegInf;
-#pragma unroll
-      for (int n = 0; n < 8; ++n) {
-        if (edge) {
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int kpos = k0 + n * 8 + 2 * t + (e & 1);
-            const int qpos = wq0 + g + (e >> 1) * 8;
-            if (kpos >= Sk || (causal && qpos < kpos)) s[n * 4 + e] = kNegInf;
-          }
-        }
-        mx0 = fmaxf(mx0, fmaxf(s[n * 4], s[n * 4 + 1]));
-        mx1 = fmaxf(mx1, fmaxf(s[n * 4 + 2], s[n * 4 + 3]));
-      }
-      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
-      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
-      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
-      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
-      const float mn0 = fmaxf(m0, mx0 * sl2), mn1 = fmaxf(m1, mx1 * sl2);
-      const float c0 = ex2(m0 - mn0), c1 = ex2(m1 - mn1);
-      m0 = mn0;
-      m1 = mn1;
-      float rs0 = 0.f, rs1 = 0.f;
-#pragma unroll
-      for (int n = 0; n < 8; ++n) {
-        s[n * 4 + 0] = ex2(fmaf(s[n * 4 + 0], sl2, -mn0));
-        s[n * 4 + 1] = ex2(fmaf(s[n * 4 + 1], sl2, -mn0));
-        s[n * 4 + 2] = ex2(fmaf(s[n * 4 + 2], sl2, -mn1));
-        s[n * 4 + 3] = ex2(fmaf(s[n * 4 + 3], sl2, -mn1));
-        rs0 += s[n * 4 + 0] + s[n * 4 + 1];
-        rs1 += s[n * 4 + 2] + s[n * 4 + 3];
-      }
-      l0 = l0 * c0 + rs0;  // this thread's share; summed over the quad last
-      l1 = l1 * c1 + rs1;
+      float c0, c1;
+      softmax_bf16(s, m0, m1, l0, l1, c0, c1, edge, k0, wq0, g, t, Sk, causal,
+                   sl2);
       // tile kt - 1's P.V is done: its P and O may change now
       asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
       pin(acc);
-#pragma unroll
-      for (int j = 0; j < DP / 8; ++j) {
-        acc[j * 4 + 0] *= c0;
-        acc[j * 4 + 1] *= c0;
-        acc[j * 4 + 2] *= c1;
-        acc[j * 4 + 3] *= c1;
-      }
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        pa[kk][0] = pack_bf16(s[8 * kk + 0], s[8 * kk + 1]);
-        pa[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
-        pa[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
-        pa[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
-      }
+      rescale(acc, c0, c1);
+      pack_p(pa, s);
     } else if (kt == nlive && kt > 0) {
       issue_pv(kt - 1);  // the warpgroup's last P.V
       asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
@@ -660,26 +715,133 @@ __global__ void __launch_bounds__(kThreads, DP <= 96 ? 2 : 1)
 
 // -- f32: register tiles on the FP32 cores ------------------------------------
 
-constexpr int kBKf = 32;  // keys per tile
+constexpr int kBKf = 32;        // keys per tile
+constexpr int kPSf = kBKf + 4;  // row stride of P
+
+// s[i][j] += Q[row0 + i][d] K[cg + 8j][d] over d in [0, DEPTH): one FMA
+// chain per (i, j) in the order of d; Q and K rows qss and kss floats apart
+template <int DEPTH>
+__device__ __forceinline__ void qk_f32(float (&s)[4][4], const float* Qt,
+                                       int qss, const float* Kt, int kss,
+                                       int row0, int cg) {
+#pragma unroll 4
+  for (int d = 0; d < DEPTH; d += 4) {
+    float4 qv[4], kv[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      qv[i] = *reinterpret_cast<const float4*>(Qt + (row0 + i) * qss + d);
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      kv[j] = *reinterpret_cast<const float4*>(Kt + (cg + 8 * j) * kss + d);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        s[i][j] = fmaf(qv[i].x, kv[j].x, s[i][j]);
+        s[i][j] = fmaf(qv[i].y, kv[j].y, s[i][j]);
+        s[i][j] = fmaf(qv[i].z, kv[j].z, s[i][j]);
+        s[i][j] = fmaf(qv[i].w, kv[j].w, s[i][j]);
+      }
+  }
+}
+
+// The online softmax of one 32-key tile on query rows q0 + row0 + i (keys
+// k0 + cg + 8j): scale, mask keys at or past Sk and, when causal, above the
+// diagonal (only on an `edge` tile), new row maxima across the row's 8
+// threads, P = exp(S - m) into Ps, this thread's share of the row sums, and
+// O rescaled.
+template <int NC>
+__device__ __forceinline__ void softmax_f32(float (&s)[4][4], float (&m)[4],
+                                            float (&l)[4],
+                                            float (&acc)[4][NC][2], float* Ps,
+                                            int q0, int row0, int cg, int k0,
+                                            bool edge, int Sk, int causal,
+                                            float scale) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int qpos = q0 + row0 + i;
+    float mx = kNegInf;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      float x = s[i][j] * scale;
+      if (edge) {
+        const int kpos = k0 + cg + 8 * j;
+        if (kpos >= Sk || (causal && qpos < kpos)) x = kNegInf;
+      }
+      s[i][j] = x;
+      mx = fmaxf(mx, x);
+    }
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
+    const float mn = fmaxf(m[i], mx);
+    const float corr = expf(m[i] - mn);
+    m[i] = mn;
+    float rs = 0.f;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float p = expf(s[i][j] - mn);
+      Ps[(row0 + i) * kPSf + cg + 8 * j] = p;
+      rs += p;
+    }
+    l[i] = l[i] * corr + rs;  // this thread's share; summed over 8 last
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      acc[i][c][0] *= corr;
+      acc[i][c][1] *= corr;
+    }
+  }
+}
+
+// O[row0 + i][2cg + 16c + e] += P[row0 + i][kk] V[kk][2cg + 16c + e] over
+// the tile's 32 keys; V rows VS floats apart
+template <int NC, int VS>
+__device__ __forceinline__ void pv_f32(float (&acc)[4][NC][2], const float* Ps,
+                                       const float* Vt, int row0, int cg) {
+#pragma unroll 2
+  for (int kk = 0; kk < kBKf; kk += 4) {
+    float4 pv[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      pv[i] = *reinterpret_cast<const float4*>(Ps + (row0 + i) * kPSf + kk);
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const float* vr = Vt + (kk + u) * VS + cg * 2;
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        const float2 vv = *reinterpret_cast<const float2*>(vr + 16 * c);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float p = u == 0 ? pv[i].x
+                        : u == 1 ? pv[i].y
+                        : u == 2 ? pv[i].z
+                                 : pv[i].w;
+          acc[i][c][0] = fmaf(p, vv.x, acc[i][c][0]);
+          acc[i][c][1] = fmaf(p, vv.y, acc[i][c][1]);
+        }
+      }
+    }
+  }
+}
 
 template <int DP>
 __global__ void __launch_bounds__(kThreads)
     flash_f32(const float* __restrict__ q, const float* __restrict__ k,
-              const float* __restrict__ v, float* __restrict__ o, int Hq,
-              int Hkv, int Sq, int Sk, int D, Strides qs, Strides ks,
-              Strides vs, Strides os, int causal, float scale, int vec) {
+              const float* __restrict__ v, float* __restrict__ o, int b0,
+              int ztop, int Hq, int Hkv, int Sq, int Sk, int D, Strides qs,
+              Strides ks, Strides vs, Strides os, int causal, float scale,
+              int vec) {
   constexpr int SS = DP + 4;     // row stride of Q, K, V: float4 rows in
                                  // distinct banks for 8 consecutive rows
-  constexpr int PS = kBKf + 4;   // row stride of P
   constexpr int NC = DP / 16;    // float2 columns of O per thread
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* Qs = reinterpret_cast<float*>(smem_raw);
   float* Ks = Qs + kBQ * SS;       // 2 stages of kBKf x SS
   float* Vs = Ks + 2 * kBKf * SS;  // 2 stages of kBKf x SS
-  float* Ps = Vs + 2 * kBKf * SS;  // kBQ x PS
+  float* Ps = Vs + 2 * kBKf * SS;  // kBQ x kPSf
 
-  const int h = blockIdx.x, b = blockIdx.y;
-  const int q0 = (gridDim.z - 1 - blockIdx.z) * kBQ;  // heaviest first
+  const int h = blockIdx.x, b = b0 + blockIdx.y;
+  const int q0 = (ztop - (int)blockIdx.z) * kBQ;  // heaviest first
   const int hk = h / (Hq / Hkv);
   const int tid = threadIdx.x;
   const int rg = tid >> 3, cg = tid & 7;
@@ -730,85 +892,11 @@ __global__ void __launch_bounds__(kThreads)
     float s[4][4];
 #pragma unroll
     for (int i = 0; i < 4; ++i) s[i][0] = s[i][1] = s[i][2] = s[i][3] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < DP; d += 4) {
-      float4 qv[4], kv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        qv[i] = *reinterpret_cast<const float4*>(Qs + (row0 + i) * SS + d);
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        kv[j] = *reinterpret_cast<const float4*>(Kt + (cg + 8 * j) * SS + d);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          s[i][j] = fmaf(qv[i].x, kv[j].x, s[i][j]);
-          s[i][j] = fmaf(qv[i].y, kv[j].y, s[i][j]);
-          s[i][j] = fmaf(qv[i].z, kv[j].z, s[i][j]);
-          s[i][j] = fmaf(qv[i].w, kv[j].w, s[i][j]);
-        }
-    }
+    qk_f32<DP>(s, Qs, SS, Kt, SS, row0, cg);
     const bool edge = (causal && k0 + kBKf - 1 > q0) || k0 + kBKf > Sk;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qpos = q0 + row0 + i;
-      float mx = kNegInf;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        float x = s[i][j] * scale;
-        if (edge) {
-          const int kpos = k0 + cg + 8 * j;
-          if (kpos >= Sk || (causal && qpos < kpos)) x = kNegInf;
-        }
-        s[i][j] = x;
-        mx = fmaxf(mx, x);
-      }
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
-      const float mn = fmaxf(m[i], mx);
-      const float corr = expf(m[i] - mn);
-      m[i] = mn;
-      float rs = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = expf(s[i][j] - mn);
-        Ps[(row0 + i) * PS + cg + 8 * j] = p;
-        rs += p;
-      }
-      l[i] = l[i] * corr + rs;  // this thread's share; summed over 8 last
-#pragma unroll
-      for (int c = 0; c < NC; ++c) {
-        acc[i][c][0] *= corr;
-        acc[i][c][1] *= corr;
-      }
-    }
+    softmax_f32(s, m, l, acc, Ps, q0, row0, cg, k0, edge, Sk, causal, scale);
     __syncwarp();  // a row's P was written by the 8 threads of its group
-#pragma unroll 2
-    for (int kk = 0; kk < kBKf; kk += 4) {
-      float4 pv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        pv[i] = *reinterpret_cast<const float4*>(Ps + (row0 + i) * PS + kk);
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const float* vr = Vt + (kk + u) * SS + cg * 2;
-#pragma unroll
-        for (int c = 0; c < NC; ++c) {
-          const float2 vv = *reinterpret_cast<const float2*>(vr + 16 * c);
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const float p = u == 0 ? pv[i].x
-                          : u == 1 ? pv[i].y
-                          : u == 2 ? pv[i].z
-                                   : pv[i].w;
-            acc[i][c][0] = fmaf(p, vv.x, acc[i][c][0]);
-            acc[i][c][1] = fmaf(p, vv.y, acc[i][c][1]);
-          }
-        }
-      }
-    }
+    pv_f32<NC, SS>(acc, Ps, Vt, row0, cg);
     __syncthreads();  // the stage read here is refilled next iteration
   }
 
@@ -834,6 +922,325 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// -- wide heads: head-dim chunks and 128-column slices of O ---------------------
+
+constexpr int kDV = 128;        // O columns a wide block owns
+constexpr int kKCh = 64;        // head-dim columns of a chunk, bf16
+constexpr int kKCf = 32;        // the same, f32
+constexpr int kStagesW = 3;     // bf16 chunks in the ring
+constexpr int kQResBf16 = 512;  // Q stays in shared memory up to this
+constexpr int kQResF32 = 320;   // padded head dim (bf16, f32)
+
+// load_tile / load_atoms with the row width (and stride) known at run
+// time: the resident Q of the wide kernels
+__device__ __forceinline__ int atom_off_rt(int r, int c, int dp) {
+  return ((r >> 3) * (dp >> 4) + (c >> 4)) * 256 + (r & 7) * 32 +
+         ((((c >> 3) & 1) ^ ((r >> 2) & 1)) << 4) + (c & 7) * 2;
+}
+__device__ __forceinline__ void load_atoms_rt(unsigned char* dst,
+                                              const __nv_bfloat16* src,
+                                              int64_t stride, int rows, int dp,
+                                              int valid, int D, bool vec,
+                                              int tid) {
+  if (vec) {
+    const int cpr = dp / 8;
+    for (int i = tid; i < rows * cpr; i += kThreads) {
+      const int r = i / cpr, c = (i - r * cpr) * 8;
+      const bool ok = r < valid && c < D;
+      cp_async16(dst + atom_off_rt(r, c, dp), ok ? src + r * stride + c : src,
+                 ok ? 16 : 0);
+    }
+  } else {
+    for (int i = tid; i < rows * dp; i += kThreads) {
+      const int r = i / dp, c = i - r * dp;
+      *reinterpret_cast<__nv_bfloat16*>(dst + atom_off_rt(r, c, dp)) =
+          (r < valid && c < D) ? src[r * stride + c] : zero<__nv_bfloat16>();
+    }
+  }
+}
+__device__ __forceinline__ void load_tile_rt(float* dst, int ss,
+                                             const float* src, int64_t stride,
+                                             int rows, int cols, int valid,
+                                             int D, bool vec, int tid) {
+  if (vec) {
+    const int cpr = cols / 4;
+    for (int i = tid; i < rows * cpr; i += kThreads) {
+      const int r = i / cpr, c = (i - r * cpr) * 4;
+      const bool ok = r < valid && c < D;
+      cp_async16(dst + r * ss + c, ok ? src + r * stride + c : src,
+                 ok ? 16 : 0);
+    }
+  } else {
+    for (int i = tid; i < rows * cols; i += kThreads) {
+      const int r = i / cols, c = i - r * cols;
+      dst[r * ss + c] = (r < valid && c < D) ? src[r * stride + c] : 0.f;
+    }
+  }
+}
+
+// bf16, wide: two warpgroups of 64 query rows, key tiles of 64, S summed
+// over head-dim chunks of kKCh by wgmma m64n64k16 from shared memory, O's
+// slice by wgmma m64n128k16 with P from registers.  Step i of the walk is
+// chunk i % nd of key tile i / nd; its K chunk (with the Q chunk unless
+// QRES, and with the tile's V slice at the tile's first chunk) is loaded
+// two steps ahead into a ring of kStagesW.
+template <bool QRES>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_bf16_wide(const __nv_bfloat16* __restrict__ q,
+                    const __nv_bfloat16* __restrict__ k,
+                    const __nv_bfloat16* __restrict__ v,
+                    __nv_bfloat16* __restrict__ o, int b0, int ztop,
+                    int Hq, int Hkv, int Sq, int Sk, int D, Strides qs,
+                    Strides ks, Strides vs, Strides os, int causal,
+                    float scale, int vec) {
+  constexpr int QT = kBQ * kKCh * 2;       // bytes of a streamed Q chunk
+  constexpr int KT = kBKh * kKCh * 2;      // bytes of a K chunk
+  constexpr int VT = kBKh * kDV * 2;       // bytes of a V slice
+  constexpr int SBO = (kKCh / 16) * 256;   // chunks: bytes between 8-row groups
+  constexpr int SBOV = (kDV / 16) * 256;   // V slices: the same
+  const int DPQ = (D + kKCh - 1) / kKCh * kKCh;
+  const int nd = DPQ / kKCh;               // chunks a key tile: 3 or more
+  const int SBOQ = QRES ? (DPQ / 16) * 256 : SBO;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* Qs = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* Ks = Qs + (QRES ? kBQ * DPQ * 2 : kStagesW * QT);
+  unsigned char* Vs = Ks + kStagesW * KT;  // 2 slices
+
+  const int ns = (D + kDV - 1) / kDV;      // slices of O's columns
+  const int h = blockIdx.x / ns, b = b0 + blockIdx.y;
+  const int c0 = (blockIdx.x - h * ns) * kDV;
+  const int q0 = (ztop - (int)blockIdx.z) * kBQ;  // heaviest first
+  const int hk = h / (Hq / Hkv);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int wg = warp >> 2;
+  const int gq0 = q0 + wg * 64;
+  const int wq0 = gq0 + (warp & 3) * 16;
+
+  const __nv_bfloat16* qp = q + b * qs.b + h * qs.h + (int64_t)q0 * qs.s;
+  const __nv_bfloat16* kp = k + b * ks.b + hk * ks.h;
+  const __nv_bfloat16* vp = v + b * vs.b + hk * vs.h;
+  const bool vecb = vec != 0;
+
+  const int kend = causal ? min(Sk, q0 + kBQ) : Sk;
+  const int ntiles = (kend + kBKh - 1) / kBKh;
+  const int nlive = gq0 >= Sq ? 0
+                  : causal ? min(ntiles, (gq0 + 63) / kBKh + 1)
+                           : ntiles;
+  const int nsteps = ntiles * nd;
+  // V slice kt + 1 is loaded at step (kt + 1) nd - 2, after tile kt - 1's
+  // P.V read the same slot, because nd >= 3
+  auto load_step = [&](int i) {
+    const int kt = i / nd, dc = i - kt * nd, st = i % kStagesW;
+    const int k0 = kt * kBKh, d0 = dc * kKCh;
+    if (!QRES)
+      load_atoms<kBQ, kKCh>(Qs + st * QT, qp + d0, qs.s, Sq - q0, D - d0,
+                            vecb, tid);
+    load_atoms<kBKh, kKCh>(Ks + st * KT, kp + (int64_t)k0 * ks.s + d0, ks.s,
+                           Sk - k0, D - d0, vecb, tid);
+    if (dc == 0)
+      load_atoms<kBKh, kDV>(Vs + (kt & 1) * VT, vp + (int64_t)k0 * vs.s + c0,
+                            vs.s, Sk - k0, D - c0, vecb, tid);
+  };
+  if (QRES) load_atoms_rt(Qs, qp, qs.s, kBQ, DPQ, Sq - q0, D, vecb, tid);
+  load_step(0);
+  cp_async_commit();  // group: (Q and) step 0
+  if (nsteps > 1) load_step(1);
+  cp_async_commit();  // group: step 1 (maybe empty)
+
+  float acc[kDV / 2];  // O's slice: 16 rows x kDV per warp
+#pragma unroll
+  for (int j = 0; j < kDV / 2; ++j) acc[j] = 0.f;
+  float s[32];
+  uint32_t pa[4][4];
+  float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
+  const float sl2 = scale * kLog2e;
+  for (int i = 0; i < nsteps; ++i) {
+    if (i + 2 < nsteps) load_step(i + 2);
+    cp_async_commit();
+    cp_async_wait<2>();  // step i has landed
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();
+    const int kt = i / nd, dc = i - kt * nd, st = i % kStagesW;
+    if (kt < nlive) {
+      const uint32_t qa =
+          QRES ? smem_u32(Qs) + wg * 8 * SBOQ + dc * (kKCh / 16) * 256
+               : smem_u32(Qs + st * QT) + wg * 8 * SBO;
+      const uint32_t ka = smem_u32(Ks + st * KT);
+      if (dc == 0) {
+#pragma unroll
+        for (int j = 0; j < 32; ++j) s[j] = 0.f;
+      }
+      pin(s);
+      wg_fence();
+#pragma unroll
+      for (int kd = 0; kd < kKCh / 16; ++kd)
+        wgmma_ss_n64(s, wg_desc(qa + kd * 256, 16, SBOQ),
+                     wg_desc(ka + kd * 256, 16, SBO), dc > 0 || kd > 0);
+      asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+      asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+      pin(s);
+      if (dc == nd - 1) {
+        const int k0 = kt * kBKh;
+        const bool edge = (causal && k0 + kBKh - 1 > wq0) || k0 + kBKh > Sk;
+        float c0f, c1f;
+        softmax_bf16(s, m0, m1, l0, l1, c0f, c1f, edge, k0, wq0, g, t, Sk,
+                     causal, sl2);
+        rescale(acc, c0f, c1f);
+        pack_p(pa, s);
+        const uint32_t va = smem_u32(Vs + (kt & 1) * VT);
+        pin(acc);
+        wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_rs<kDV>(acc, pa[kk], wg_desc(va + kk * 2 * SBOV, 256, SBOV),
+                        1);
+        asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+        asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+        pin(acc);
+      }
+    }
+    __syncthreads();  // step i's slots are refilled from step i + 1 on
+  }
+
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+  const float inv0 = 1.f / fmaxf(l0, 1e-30f), inv1 = 1.f / fmaxf(l1, 1e-30f);
+  const int r0 = wq0 + g, r1 = r0 + 8;
+  __nv_bfloat16* op = o + b * os.b + h * os.h;
+#pragma unroll
+  for (int j = 0; j < kDV / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int d = c0 + j * 8 + 2 * t + e;
+      if (d < D) {
+        if (r0 < Sq)
+          op[(int64_t)r0 * os.s + d] = __float2bfloat16(acc[j * 4 + e] * inv0);
+        if (r1 < Sq)
+          op[(int64_t)r1 * os.s + d] =
+              __float2bfloat16(acc[j * 4 + 2 + e] * inv1);
+      }
+    }
+  }
+}
+
+// f32, wide: the narrow f32 kernel's threads and tiles, with S summed over
+// head-dim chunks of kKCf and O's slice of kDV columns.  Step i is chunk
+// i % nd of key tile i / nd, loaded one step ahead into two slots.
+template <bool QRES>
+__global__ void __launch_bounds__(kThreads)
+    flash_f32_wide(const float* __restrict__ q, const float* __restrict__ k,
+                   const float* __restrict__ v, float* __restrict__ o, int b0,
+                   int ztop, int Hq, int Hkv, int Sq, int Sk, int D,
+                   Strides qs, Strides ks, Strides vs, Strides os, int causal,
+                   float scale, int vec) {
+  constexpr int SC = kKCf + 4;  // row stride of K and streamed Q chunks
+  constexpr int SV = kDV + 4;   // row stride of V slices
+  constexpr int NC = kDV / 16;  // float2 columns of O per thread
+  const int DPQ = (D + kKCf - 1) / kKCf * kKCf;
+  const int nd = DPQ / kKCf;
+  const int SQ = QRES ? DPQ + 4 : SC;  // row stride of Q
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* Qs = reinterpret_cast<float*>(smem_raw);
+  float* Ks = Qs + (QRES ? kBQ * SQ : 2 * kBQ * SC);  // 2 chunks
+  float* Vs = Ks + 2 * kBKf * SC;                     // 2 slices
+  float* Ps = Vs + 2 * kBKf * SV;                     // kBQ x kPSf
+
+  const int ns = (D + kDV - 1) / kDV;  // slices of O's columns
+  const int h = blockIdx.x / ns, b = b0 + blockIdx.y;
+  const int c0 = (blockIdx.x - h * ns) * kDV;
+  const int q0 = (ztop - (int)blockIdx.z) * kBQ;  // heaviest first
+  const int hk = h / (Hq / Hkv);
+  const int tid = threadIdx.x;
+  const int rg = tid >> 3, cg = tid & 7;
+  const int row0 = rg * 4;
+
+  const float* qp = q + b * qs.b + h * qs.h + (int64_t)q0 * qs.s;
+  const float* kp = k + b * ks.b + hk * ks.h;
+  const float* vp = v + b * vs.b + hk * vs.h;
+  const bool vecb = vec != 0;
+
+  const int kend = causal ? min(Sk, q0 + kBQ) : Sk;
+  const int nsteps = (kend + kBKf - 1) / kBKf * nd;
+  // V slice kt + 1 is loaded at step (kt + 1) nd - 1, after tile kt - 1's
+  // P.V read the same slot
+  auto load_step = [&](int i) {
+    const int kt = i / nd, dc = i - kt * nd, st = i & 1;
+    const int k0 = kt * kBKf, d0 = dc * kKCf;
+    if (!QRES)
+      load_tile<float, kBQ, kKCf, SC>(Qs + st * kBQ * SC, qp + d0, qs.s,
+                                      Sq - q0, D - d0, vecb, tid);
+    load_tile<float, kBKf, kKCf, SC>(Ks + st * kBKf * SC,
+                                     kp + (int64_t)k0 * ks.s + d0, ks.s,
+                                     Sk - k0, D - d0, vecb, tid);
+    if (dc == 0)
+      load_tile<float, kBKf, kDV, SV>(Vs + (kt & 1) * kBKf * SV,
+                                      vp + (int64_t)k0 * vs.s + c0, vs.s,
+                                      Sk - k0, D - c0, vecb, tid);
+  };
+  if (QRES) load_tile_rt(Qs, SQ, qp, qs.s, kBQ, DPQ, Sq - q0, D, vecb, tid);
+  load_step(0);
+  cp_async_commit();
+
+  float acc[4][NC][2];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int c = 0; c < NC; ++c) acc[i][c][0] = acc[i][c][1] = 0.f;
+  float m[4], l[4], s[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[i] = kNegInf;
+    l[i] = 0.f;
+  }
+
+  for (int i = 0; i < nsteps; ++i) {
+    if (i + 1 < nsteps) load_step(i + 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // step i has landed
+    __syncthreads();
+    const int kt = i / nd, dc = i - kt * nd, st = i & 1;
+    if (dc == 0) {
+#pragma unroll
+      for (int r = 0; r < 4; ++r) s[r][0] = s[r][1] = s[r][2] = s[r][3] = 0.f;
+    }
+    qk_f32<kKCf>(s, QRES ? Qs + dc * kKCf : Qs + st * kBQ * SC, SQ,
+                 Ks + st * kBKf * SC, SC, row0, cg);
+    if (dc == nd - 1) {
+      const int k0 = kt * kBKf;
+      const bool edge = (causal && k0 + kBKf - 1 > q0) || k0 + kBKf > Sk;
+      softmax_f32(s, m, l, acc, Ps, q0, row0, cg, k0, edge, Sk, causal,
+                  scale);
+      __syncwarp();  // a row's P was written by the 8 threads of its group
+      pv_f32<NC, SV>(acc, Ps, Vs + (kt & 1) * kBKf * SV, row0, cg);
+    }
+    __syncthreads();  // step i's slots are refilled from step i + 1 on
+  }
+
+  float* op = o + b * os.b + h * os.h;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    float li = l[i];
+    li += __shfl_xor_sync(0xffffffffu, li, 1);
+    li += __shfl_xor_sync(0xffffffffu, li, 2);
+    li += __shfl_xor_sync(0xffffffffu, li, 4);
+    const float denom = fmaxf(li, 1e-30f);
+    const int qpos = q0 + row0 + i;
+    if (qpos < Sq) {
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int d = c0 + cg * 2 + 16 * c + e;
+          if (d < D) op[(int64_t)qpos * os.s + d] = acc[i][c][e] / denom;
+        }
+      }
+    }
+  }
+}
+
 // -- launch -------------------------------------------------------------------
 
 template <typename T>
@@ -843,6 +1250,28 @@ bool aligned16(const void* p, const Strides& s, int D) {
          s.h % E == 0 && s.s % E == 0 && D % E == 0;
 }
 
+// Set the kernel's shared memory and launch it on grids of (x, batch,
+// query block), as many as the 65,535 limit of y and z needs (one unless
+// B or the query-block count passes it); return the first error.
+template <typename T, typename... P, typename... A>
+cudaError_t run(void (*kern)(P...), unsigned x, int B, int Sq, size_t smem,
+                cudaStream_t stream, const T* q, const T* k, const T* v,
+                T* o, A... rest) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const int nqb = (Sq + kBQ - 1) / kBQ;
+  for (int b0 = 0; b0 < B; b0 += kMaxGridYZ) {
+    for (int z0 = 0; z0 < nqb; z0 += kMaxGridYZ) {
+      const dim3 grid(x, std::min<unsigned>(kMaxGridYZ, B - b0),
+                      std::min<unsigned>(kMaxGridYZ, nqb - z0));
+      kern<<<grid, kThreads, smem, stream>>>(q, k, v, o, b0, nqb - 1 - z0,
+                                              rest...);
+    }
+  }
+  return cudaGetLastError();
+}
+
 template <typename T, int DP>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    int B, int Hq, int Hkv, int Sq, int Sk, int D,
@@ -850,32 +1279,62 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    cudaStream_t stream) {
   const int vec = aligned16<T>(q, st[0], D) && aligned16<T>(k, st[1], D) &&
                   aligned16<T>(v, st[2], D);
-  const dim3 grid(Hq, B, (Sq + kBQ - 1) / kBQ);
   if constexpr (sizeof(T) == 2) {
     // Q, the K and V rings, and slack to align the tiles to 1024 bytes
     const size_t smem =
         sizeof(T) * (size_t)(kBQ + 2 * kStages * kBKh) * DP + 1024;
-    cudaError_t err = cudaFuncSetAttribute(
-        flash_bf16<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return err;
-    flash_bf16<DP><<<grid, kThreads, smem, stream>>>(
-        (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
-        (const __nv_bfloat16*)v, (__nv_bfloat16*)o, Hq, Hkv, Sq, Sk, D,
-        st[0], st[1], st[2], st[3], causal, scale, vec);
+    return run(flash_bf16<DP>, Hq, B, Sq, smem, stream,
+               (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
+               (const __nv_bfloat16*)v, (__nv_bfloat16*)o, Hq, Hkv, Sq, Sk,
+               D, st[0], st[1], st[2], st[3], causal, scale, vec);
   } else {
     constexpr int SS = DP + 4;
     const size_t smem =
-        sizeof(float) * ((size_t)(kBQ + 4 * kBKf) * SS + kBQ * (kBKf + 4));
-    cudaError_t err = cudaFuncSetAttribute(
-        flash_f32<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return err;
-    flash_f32<DP><<<grid, kThreads, smem, stream>>>(
-        (const float*)q, (const float*)k, (const float*)v, (float*)o, Hq, Hkv,
-        Sq, Sk, D, st[0], st[1], st[2], st[3], causal, scale, vec);
+        sizeof(float) * ((size_t)(kBQ + 4 * kBKf) * SS + kBQ * kPSf);
+    return run(flash_f32<DP>, Hq, B, Sq, smem, stream, (const float*)q,
+               (const float*)k, (const float*)v, (float*)o, Hq, Hkv, Sq, Sk,
+               D, st[0], st[1], st[2], st[3], causal, scale, vec);
   }
-  return cudaGetLastError();
+}
+
+// head dims padded past 160: the wide kernels, Q resident where it fits
+template <typename T>
+cudaError_t launch_wide(const void* q, const void* k, const void* v, void* o,
+                        int B, int Hq, int Hkv, int Sq, int Sk, int D,
+                        const Strides* st, int causal, float scale,
+                        cudaStream_t stream) {
+  const int vec = aligned16<T>(q, st[0], D) && aligned16<T>(k, st[1], D) &&
+                  aligned16<T>(v, st[2], D);
+  // heads x slices of O's columns: more than 2^31 - 1 would be more than
+  // 2^38 head-dim columns of q, which no card holds
+  const size_t x = (size_t)Hq * ((D + kDV - 1) / kDV);
+  if (x > 0x7fffffff) return cudaErrorInvalidValue;
+  if constexpr (sizeof(T) == 2) {
+    const size_t dpq = (D + kKCh - 1) / kKCh * kKCh;
+    const bool qres = dpq <= kQResBf16;
+    // Q (whole, or a ring of chunks), the K ring, two V slices, and slack
+    // to align the tiles to 1024 bytes
+    const size_t smem = 2 * ((qres ? kBQ * dpq : kStagesW * kBQ * kKCh) +
+                             kStagesW * kBKh * kKCh + 2 * kBKh * kDV) +
+                        1024;
+    auto kern = qres ? flash_bf16_wide<true> : flash_bf16_wide<false>;
+    return run(kern, (unsigned)x, B, Sq, smem, stream,
+               (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
+               (const __nv_bfloat16*)v, (__nv_bfloat16*)o, Hq, Hkv, Sq, Sk,
+               D, st[0], st[1], st[2], st[3], causal, scale, vec);
+  } else {
+    const size_t dpq = (D + kKCf - 1) / kKCf * kKCf;
+    const bool qres = dpq <= kQResF32;
+    // Q (whole, or two chunks), two K chunks, two V slices, P
+    const size_t smem =
+        sizeof(float) * ((qres ? kBQ * (dpq + 4) : 2 * kBQ * (kKCf + 4)) +
+                         2 * kBKf * (kKCf + 4) + 2 * kBKf * (kDV + 4) +
+                         kBQ * kPSf);
+    auto kern = qres ? flash_f32_wide<true> : flash_f32_wide<false>;
+    return run(kern, (unsigned)x, B, Sq, smem, stream, (const float*)q,
+               (const float*)k, (const float*)v, (float*)o, Hq, Hkv, Sq, Sk,
+               D, st[0], st[1], st[2], st[3], causal, scale, vec);
+  }
 }
 
 template <typename T>
@@ -900,7 +1359,8 @@ cudaError_t launch_d(const void* q, const void* k, const void* v, void* o,
     FA_CASE(160)
   }
 #undef FA_CASE
-  return cudaErrorInvalidValue;
+  return launch_wide<T>(q, k, v, o, B, Hq, Hkv, Sq, Sk, D, st, causal, scale,
+                        stream);
 }
 
 }  // namespace
@@ -912,8 +1372,7 @@ extern "C" int flash_attention_launch(
     int64_t ksb, int64_t ksh, int64_t kss, int64_t vsb, int64_t vsh,
     int64_t vss, int64_t osb, int64_t osh, int64_t oss, int causal,
     int dtype, float scale, void* stream) {
-  if (D < 1 || D > 160 || Hkv < 1 || Hq % Hkv != 0 || Sk < 1 || B > 65535 ||
-      (Sq + kBQ - 1) / kBQ > 65535)
+  if (D < 1 || Hkv < 1 || Hq % Hkv != 0 || Sk < 1)
     return (int)cudaErrorInvalidValue;
   const Strides st[4] = {{qsb, qsh, qss}, {ksb, ksh, kss}, {vsb, vsh, vss},
                          {osb, osh, oss}};

@@ -18,6 +18,7 @@ from typing import Optional
 import torch
 
 from repro_torch import _build
+from repro_torch.kernels._lru import lru_touch  # noqa: F401  (as JAX's)
 from repro_torch.kernels.cache_probe.ref import prime_probe_ref, triad_ref
 
 __all__ = ["triad", "triad_device_seconds", "prime_probe", "TileError"]

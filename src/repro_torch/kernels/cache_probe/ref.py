@@ -9,9 +9,9 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels._lru import lru_touch
+from repro_torch.kernels._lru import INT_MAX, lru_touch
 
-__all__ = ["triad_ref", "prime_probe_ref"]
+__all__ = ["INT_MAX", "triad_ref", "prime_probe_ref"]
 
 
 def triad_ref(a: torch.Tensor, b: torch.Tensor, scale) -> torch.Tensor:

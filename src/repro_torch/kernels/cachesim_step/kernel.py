@@ -14,6 +14,7 @@ from typing import Tuple
 import torch
 
 from repro_torch import _build
+from repro_torch.kernels._lru import lru_touch  # noqa: F401  (as JAX's)
 from repro_torch.kernels.cachesim_step.ref import lru_sets_ref
 
 

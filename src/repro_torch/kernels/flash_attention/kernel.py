@@ -2,8 +2,9 @@
 (`csrc/flash_attention.cu`), the port of the Pallas kernel
 `repro.kernels.flash_attention.kernel.flash_attention_bhsd`.
 
-On CUDA tensors it launches the kernel (and counts the launch in
-``_build.LAUNCHES["flash_attention"]``) or raises; on CPU tensors it runs
+On CUDA tensors it launches the kernel (and counts each launch in
+``_build.LAUNCHES["flash_attention"]``: one a call, unless the batch or the
+query-block count passes a grid's 65,535) or raises; on CPU tensors it runs
 the plain version, `ref.attention_ref`, and counts that in
 ``_build.PLAIN_CALLS``.  The kernel has no backward (the Pallas kernel has
 none either), so on any device it refuses inputs that require grad while
@@ -20,14 +21,42 @@ import torch
 from repro_torch import _build
 from repro_torch.kernels.flash_attention.ref import NEG_INF, attention_ref
 
-__all__ = ["NEG_INF", "flash_attention_bhsd"]
+__all__ = ["NEG_INF", "flash_attention_bhsd", "check_args", "grid_launches"]
 
-#: query rows per CUDA block, and the largest head dim the kernel takes:
-#: 160, pixtral-12b's, the widest of the registered configs (the Pallas
-#: kernel takes any head dim; wider ones raise here)
+#: query rows per CUDA block (any head dim, batch and length: the Pallas
+#: kernel's domain)
 BLOCK_Q = 128
-MAX_HEAD_DIM = 160
+#: the largest gridDim.y and z: a batch or a query-block count past it
+#: takes one more launch of the kernel (a grid) for each 65,535
+MAX_GRID_YZ = 65535
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def grid_launches(B: int, Sq: int) -> int:
+    """CUDA launches of one call on a (B, ., Sq, .) query: one grid for
+    each 65,535 batches times each 65,535 blocks of `BLOCK_Q` rows."""
+    n_q = -(-Sq // BLOCK_Q)
+    return -(-B // MAX_GRID_YZ) * -(-n_q // MAX_GRID_YZ)
+
+
+def check_args(q_shape, k_shape, v_shape, dtypes=None) -> None:
+    """The wrapper's checks on shapes and dtypes alone: q (B, Hq, Sq, D),
+    k and v (B, Hkv, Sk, D) with Hq % Hkv == 0, the shapes the Pallas
+    kernel takes (any B, head count, length and head dim); with
+    ``dtypes`` (q's, k's, v's), the CUDA kernel's too: all float32 or all
+    bfloat16.  Raises ValueError or TypeError."""
+    q_shape, k_shape, v_shape = (tuple(s) for s in (q_shape, k_shape,
+                                                     v_shape))
+    if len(q_shape) != 4 or len(k_shape) != 4 or v_shape != k_shape \
+            or q_shape[0] != k_shape[0] or q_shape[3] != k_shape[3] \
+            or k_shape[1] == 0 or q_shape[1] % k_shape[1] != 0:
+        raise ValueError(f"flash_attention: shapes q {q_shape}, k "
+                         f"{k_shape}, v {v_shape}")
+    if dtypes is not None and (dtypes[0] not in _DTYPES
+                               or set(dtypes) != {dtypes[0]}):
+        raise TypeError(f"flash_attention: dtypes "
+                        f"{', '.join(map(str, dtypes))}; expected one of "
+                        f"float32, bfloat16")
 
 
 def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -37,11 +66,7 @@ def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     q's dtype (written into ``out`` where given, a view of any strides).
     The Pallas kernel's ``block_q``/``block_k`` have no counterpart: the
     CUDA kernel's blocking is fixed (`BLOCK_Q` query rows a block)."""
-    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape \
-            or q.shape[0] != k.shape[0] or q.shape[3] != k.shape[3] \
-            or k.shape[1] == 0 or q.shape[1] % k.shape[1] != 0:
-        raise ValueError(f"flash_attention: shapes q {tuple(q.shape)}, "
-                         f"k {tuple(k.shape)}, v {tuple(v.shape)}")
+    check_args(q.shape, k.shape, v.shape)
     _build.refuse_dtensor("flash_attention", q, k, v)
     _build.refuse_grad("flash_attention", q, k, v)
     if q.device.type == "cpu":
@@ -53,12 +78,7 @@ def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return out
     B, Hq, Sq, D = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
-    if D > MAX_HEAD_DIM:
-        raise ValueError(f"flash_attention: head dim {D} > {MAX_HEAD_DIM}, "
-                         f"the widest the CUDA kernel takes")
-    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"flash_attention: dtypes {q.dtype}, {k.dtype}, "
-                        f"{v.dtype}; expected one of float32, bfloat16")
+    check_args(q.shape, k.shape, v.shape, (q.dtype, k.dtype, v.dtype))
     if out is None:
         out = torch.empty((B, Hq, Sq, D), dtype=q.dtype, device=q.device)
     for name, t in (("q", q), ("k", k), ("v", v), ("out", out)):
@@ -79,5 +99,5 @@ def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 B, Hq, Hkv, Sq, Sk, D, *strides, int(bool(causal)),
                 _DTYPES[q.dtype], float(D ** -0.5),
                 _build.stream(q.device))
-    _build.LAUNCHES["flash_attention"] += 1
+    _build.LAUNCHES["flash_attention"] += grid_launches(B, Sq)
     return out

@@ -17,15 +17,37 @@ from __future__ import annotations
 import torch
 
 from repro_torch import _build
-from repro_torch.kernels.ssd_scan.ref import ssd_scan_grid_ref
 
-__all__ = ["ssd_scan_grid"]
+__all__ = ["ssd_scan_grid", "check_args"]
 
-#: the largest chunk length, head dim and state width the kernel takes
-MAX_CHUNK, MAX_HEAD_DIM, MAX_STATE = 128, 64, 128
 #: CUDA launches of one call: C.B^T per (batch, chunk); seg and the chunk
 #: states; the carry across chunks; y
 LAUNCHES_PER_CALL = 4
+
+
+def check_args(x_shape, dt_shape, dA_shape, B_shape, C_shape,
+               block_h: int = 8, dtypes=None) -> None:
+    """The wrapper's checks on shapes and dtypes alone: x (B, H, nc, L, p),
+    dt and dA (B, H, nc, L), Bm and Cm (B, nc, L, n), and ``block_h``
+    dividing H once capped at H, as the Pallas grid takes them (any B, H,
+    chunk count, chunk L, head dim p and state n); with ``dtypes`` (the five
+    inputs'), the CUDA kernel's too: all float32.  Raises ValueError or
+    TypeError."""
+    x_shape, dt_shape, dA_shape, B_shape, C_shape = (
+        tuple(s) for s in (x_shape, dt_shape, dA_shape, B_shape, C_shape))
+    if len(x_shape) != 5 or dt_shape != x_shape[:4] or dA_shape != dt_shape \
+            or len(B_shape) != 4 \
+            or B_shape[:3] != (x_shape[0], x_shape[2], x_shape[3]) \
+            or C_shape != B_shape:
+        raise ValueError(f"ssd_scan: shapes x {x_shape}, dt {dt_shape}, dA "
+                         f"{dA_shape}, B {B_shape}, C {C_shape}")
+    H = x_shape[1]
+    if H % min(block_h, H) != 0:
+        raise ValueError(f"ssd_scan: block_h {block_h} does not divide {H} "
+                         f"heads")
+    if dtypes is not None and any(d != torch.float32 for d in dtypes):
+        raise TypeError(f"ssd_scan: dtypes {', '.join(map(str, dtypes))}; "
+                        f"expected float32")
 
 
 def ssd_scan_grid(x: torch.Tensor, dt: torch.Tensor, dA: torch.Tensor,
@@ -39,30 +61,21 @@ def ssd_scan_grid(x: torch.Tensor, dt: torch.Tensor, dA: torch.Tensor,
     result.  On the card the wrapper allocates the stages' workspaces:
     C.B^T (B, nc, L, L), seg (B, H, nc, L) and the chunk states
     (B, H, nc, p, n)."""
-    if x.dim() != 5 or tuple(dt.shape) != tuple(x.shape[:4]) \
-            or dA.shape != dt.shape or Bm.dim() != 4 \
-            or tuple(Bm.shape[:3]) != (x.shape[0], x.shape[2], x.shape[3]) \
-            or Cm.shape != Bm.shape:
-        raise ValueError(f"ssd_scan: shapes x {tuple(x.shape)}, dt "
-                         f"{tuple(dt.shape)}, dA {tuple(dA.shape)}, B "
-                         f"{tuple(Bm.shape)}, C {tuple(Cm.shape)}")
+    inputs = (x, dt, dA, Bm, Cm)
+    check_args(*(t.shape for t in inputs), block_h=block_h)
     Bsz, H, nc, L, p = x.shape
     n = Bm.shape[-1]
-    if H % min(block_h, H) != 0:
-        raise ValueError(f"ssd_scan: block_h {block_h} does not divide {H} "
-                         f"heads")
-    _build.refuse_dtensor("ssd_scan", x, dt, dA, Bm, Cm)
-    _build.refuse_grad("ssd_scan", x, dt, dA, Bm, Cm)
+    _build.refuse_dtensor("ssd_scan", *inputs)
+    _build.refuse_grad("ssd_scan", *inputs)
     if x.device.type == "cpu":
+        # imported here: ref re-exports the model's ssd_chunked_ref, and
+        # the model imports this module's entry point
+        from repro_torch.kernels.ssd_scan.ref import ssd_scan_grid_ref
         _build.PLAIN_CALLS["ssd_scan"] += 1
-        return ssd_scan_grid_ref(x, dt, dA, Bm, Cm)
-    _build.check_cuda("ssd_scan", x, dt, dA, Bm, Cm,
-                      dtypes=(torch.float32,) * 5)
-    if not (1 <= L <= MAX_CHUNK and 1 <= p <= MAX_HEAD_DIM
-            and 1 <= n <= MAX_STATE and nc >= 1):
-        raise ValueError(f"ssd_scan: chunk {L} (max {MAX_CHUNK}), head dim "
-                         f"{p} (max {MAX_HEAD_DIM}), state {n} (max "
-                         f"{MAX_STATE}), {nc} chunks")
+        return ssd_scan_grid_ref(*inputs)
+    check_args(*(t.shape for t in inputs), block_h=block_h,
+               dtypes=tuple(t.dtype for t in inputs))
+    _build.check_cuda("ssd_scan", *inputs)
     y = torch.empty_like(x)
     st = torch.empty((Bsz, H, p, n), dtype=torch.float32, device=x.device)
     if Bsz * H == 0:

@@ -2,10 +2,10 @@
 the kernel's chunked layout: the oracle the CUDA `ssd_scan` kernel
 (`csrc/ssd_scan.cu`) is held against.
 
-`repro.kernels.ssd_scan.ref` in the JAX package re-exports the model's
-reference (`models.mamba2.ssd_chunked_ref`, here
-`repro_torch.models.mamba2.ssd_chunked_ref`); this module adds the chunked
-form that the kernel computes, chunk by chunk as the Pallas grid does.
+As `repro.kernels.ssd_scan.ref` in the JAX package, it re-exports the
+model's reference, `repro_torch.models.mamba2.ssd_chunked_ref` (the same
+object); it adds the chunked form that the kernel computes, chunk by chunk
+as the Pallas grid does.
 
 It also writes out, for the tests, the four stages in which the CUDA
 kernel computes the same function (Mamba2's chunk-parallel
@@ -18,8 +18,20 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["ssd_scan_grid_ref", "ssd_chunk_cb", "ssd_chunk_states",
+from repro_torch.models.mamba2 import ssd_chunked_ref
+
+__all__ = ["ssd_chunked_ref", "ssd_scan_grid_ref", "ssd_chunk_cb", "ssd_chunk_states",
            "ssd_carry_states", "ssd_chunk_outputs", "ssd_scan_stages_ref"]
+
+
+def _cumsum_in_order(t: torch.Tensor) -> torch.Tensor:
+    """cumsum along the last dim, one add at a time from the first element,
+    on every device: the order of the kernel's seg and of the model's
+    `ssd_chunked_ref` (which scans a non-innermost dim).  On CUDA,
+    `torch.cumsum` along the innermost dim is a parallel scan that rounds
+    otherwise; at a chunk of 256, |seg| ~ 180, that moved y by up to 1.1e-4
+    on an H100."""
+    return t.movedim(-1, 0).contiguous().cumsum(0).movedim(0, -1)
 
 
 def ssd_scan_grid_ref(x: torch.Tensor, dt: torch.Tensor, dA: torch.Tensor,
@@ -36,7 +48,7 @@ def ssd_scan_grid_ref(x: torch.Tensor, dt: torch.Tensor, dA: torch.Tensor,
     ys = []
     for c in range(nc):
         xc, dtc, Bc, Cc = xf[:, :, c], dtf[:, :, c], Bf[:, c], Cf[:, c]
-        seg = torch.cumsum(dAf[:, :, c], dim=-1)                 # (B,H,L)
+        seg = _cumsum_in_order(dAf[:, :, c])                     # (B,H,L)
         # mask BEFORE the exp: the upper triangle's exponents are positive
         diff = seg[..., :, None] - seg[..., None, :]             # (B,H,L,L)
         decay = torch.exp(torch.where(tril, diff, -torch.inf))
@@ -64,7 +76,7 @@ def ssd_chunk_states(x: torch.Tensor, dt: torch.Tensor, dA: torch.Tensor,
     """Stage 2, per (batch, head, chunk): seg = cumsum(dA) over the chunk
     (B, H, nc, L), and the chunk's own state contribution
     sum_l exp(seg_{L-1} - seg_l) dt_l x_l B_l^T, (B, H, nc, p, n)."""
-    seg = torch.cumsum(dA.float(), dim=-1)
+    seg = _cumsum_in_order(dA.float())
     w = torch.exp(seg[..., -1:] - seg) * dt.float()
     contrib = torch.einsum("bhclp,bcln->bhcpn", x.float() * w[..., None],
                            Bm.float())

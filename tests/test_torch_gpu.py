@@ -374,7 +374,15 @@ def _randn(dev, shape, seed, dtype=torch.float32, scale=1.0):
     (1, 384, 128, 2, 2, 80, True), (2, 256, 256, 16, 2, 64, True),
     # pixtral-12b's head dim and the one below it, GQA 4, ragged S
     (1, 200, 200, 8, 2, 160, True), (2, 130, 130, 8, 2, 160, False),
-    (1, 200, 200, 8, 2, 144, False), (2, 130, 130, 8, 2, 144, True)])
+    (1, 200, 200, 8, 2, 144, False), (2, 130, 130, 8, 2, 144, True),
+    # the wide kernels past 160: GQA, ragged S, Sq != Sk, D 200 no
+    # multiple of 16, Q resident (to 320 in f32, 512 in bf16) or streamed
+    (1, 200, 200, 8, 2, 176, True), (2, 130, 200, 4, 2, 192, False),
+    (1, 200, 130, 4, 2, 200, True), (2, 130, 130, 4, 1, 256, True),
+    (1, 70, 200, 2, 2, 288, False), (1, 200, 200, 4, 2, 512, True),
+    (1, 130, 130, 2, 2, 640, False),
+    # the narrowest head, and a batch past gridDim.y's 65,535
+    (1, 64, 64, 2, 2, 1, True), (65537, 8, 8, 1, 1, 16, True)])
 def test_flash_attention_kernel_matches_plain(B, Sq, Sk, Hq, Hkv, D, causal,
                                               dtype):
     dev = _card()
@@ -384,7 +392,8 @@ def test_flash_attention_kernel_matches_plain(B, Sq, Sk, Hq, Hkv, D, causal,
     n0 = _build.LAUNCHES["flash_attention"]
     got = fa_kernel.flash_attention_bhsd(q, k, v, causal=causal)
     torch.cuda.synchronize()
-    assert _build.LAUNCHES["flash_attention"] == n0 + 1
+    assert _build.LAUNCHES["flash_attention"] == \
+        n0 + fa_kernel.grid_launches(B, Sq)
     assert got.dtype == dtype
     want = fa_ref.attention_ref(q, k, v, causal)
     torch.testing.assert_close(got.float(), want.float(), **FA_TOL[dtype])
@@ -397,7 +406,8 @@ def test_flash_attention_kernel_matches_plain(B, Sq, Sk, Hq, Hkv, D, causal,
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("D,causal", [(64, True), (80, False)])
+@pytest.mark.parametrize("D,causal", [(64, True), (80, False),
+                                      (256, True)])
 def test_flash_attention_kernel_reads_views_off_the_16_byte_grid(D, causal,
                                                                 dtype):
     """(B, S, H, D) views of wider rows: sequence and head strides that
@@ -415,10 +425,12 @@ def test_flash_attention_kernel_reads_views_off_the_16_byte_grid(D, causal,
 
 
 def test_flash_attention_kernel_refuses_what_it_cannot_take():
+    """Half precision, and query heads that the kv heads do not divide
+    (the Pallas kernel's one refusal); any head dim runs."""
     dev = _card()
-    q = torch.zeros(1, 2, 16, 176, device=dev)     # past MAX_HEAD_DIM 160
-    with pytest.raises(ValueError, match="160"):
-        fa_kernel.flash_attention_bhsd(q, q, q)
+    q = torch.zeros(1, 3, 16, 176, device=dev)
+    with pytest.raises(ValueError, match="shapes"):
+        fa_kernel.flash_attention_bhsd(q, q[:, :2], q[:, :2])
     h = q[..., :64].half()
     with pytest.raises(TypeError):
         fa_kernel.flash_attention_bhsd(h, h, h)
@@ -431,7 +443,13 @@ def test_flash_attention_kernel_refuses_what_it_cannot_take():
     (2, 128, 4, 64, 64, 128),     # one chunk
     (1, 384, 8, 64, 64, 96),      # chunks of 96
     (2, 512, 8, 32, 128, 128),    # p = 32 with n = 128
-    (1, 99, 3, 7, 5, 33)])        # nothing a multiple of 4
+    (1, 99, 3, 7, 5, 33),         # nothing a multiple of 4
+    (1, 512, 2, 64, 128, 256),    # Mamba2's chunk of 256
+    (1, 256, 2, 128, 64, 128),    # p = 128
+    (1, 256, 2, 64, 256, 128),    # n = 256
+    (1, 1024, 2, 32, 32, 512),    # chunks of 512
+    (1, 600, 3, 97, 161, 200),    # past every tile, no multiple of 4
+    (4100, 32, 1, 4, 4, 2)])      # B nc = 65,600 past gridDim.y's limit
 def test_ssd_scan_kernel_matches_plain(b, S, h, p, n, chunk):
     dev = _card()
     x = _randn(dev, (b, S, h, p), 4)
@@ -462,6 +480,30 @@ def test_ssd_scan_grid_kernel_matches_its_plain_version():
     y_r, st_r = ssd_ref.ssd_scan_grid_ref(x, dt, dA, Bm, Cm)
     torch.testing.assert_close(y, y_r, rtol=2e-5, atol=2e-5)
     torch.testing.assert_close(st, st_r, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("Bz,H,nc,L,p,n", [
+    (1, 3, 2, 256, 64, 128), (2, 2, 3, 200, 97, 161),
+    (1, 2, 2, 128, 130, 257)])
+def test_ssd_scan_grid_kernel_walks_its_tiles(Bz, H, nc, L, p, n):
+    """The kernel's own function past one tile of rows (128), of p (64)
+    and of n (128), against its plain version.  Past 128 rows or 128
+    state columns a y or state element sums more than 128 products, the
+    kernel's in one chain and the plain version's matmuls in another
+    order: as at the full prefill shapes, 1e-4.  (On an H100 at 2e-5, 22
+    of 98,304 values of the first case were up to 6.2e-5 apart, and 4 of
+    66,560 of the third up to 5.7e-5.)"""
+    tol = 1e-4 if L > 128 or n > 128 else 2e-5
+    dev = _card()
+    x = _randn(dev, (Bz, H, nc, L, p), 15)
+    dt = torch.nn.functional.softplus(_randn(dev, (Bz, H, nc, L), 16))
+    dA = dt * -torch.exp(_randn(dev, (1, H, 1, 1), 17, scale=0.3))
+    Bm = _randn(dev, (Bz, nc, L, n), 18, scale=0.3)
+    Cm = _randn(dev, (Bz, nc, L, n), 19, scale=0.3)
+    y, st = ssd_kernel.ssd_scan_grid(x, dt, dA, Bm, Cm)
+    y_r, st_r = ssd_ref.ssd_scan_grid_ref(x, dt, dA, Bm, Cm)
+    torch.testing.assert_close(y, y_r, rtol=tol, atol=tol)
+    torch.testing.assert_close(st, st_r, rtol=tol, atol=tol)
 
 
 @pytest.mark.parametrize("arch", ["zamba2_2p7b", "qwen1p5_0p5b",

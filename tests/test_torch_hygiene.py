@@ -72,8 +72,13 @@ def test_public_surface_is_a_subset_of_the_jax_package():
 # beside the TPU's VMEM, a spec's DTensor placements (JAX's
 # NamedSharding), the DTensor helpers GSPMD needs none of (placing and
 # gathering a tree, running a function on each rank's blocks, reducing a
-# pending sum), and the collective count that stands for the HLO parser
+# pending sum), the collective count that stands for the HLO parser, the
+# LM kernel wrappers' argument checks on shapes and dtypes alone and the
+# attention kernel's launches a call
 EXTRA = {"repro_torch.models.lm": {"params_from_numpy", "caches_from_numpy"},
+         "repro_torch.kernels.flash_attention.kernel": {"check_args",
+                                                        "grid_launches"},
+         "repro_torch.kernels.ssd_scan.kernel": {"check_args"},
          "repro_torch.kernels.ssd_scan.ref": {
              "ssd_scan_grid_ref", "ssd_chunk_cb", "ssd_chunk_states",
              "ssd_carry_states", "ssd_chunk_outputs", "ssd_scan_stages_ref"},
@@ -150,6 +155,97 @@ def test_dry_run_modules_public_names_are_the_jax_modules(name):
                                          or inspect.isclass(v))
            and v.__module__ == port.__name__}
     assert own <= set(port.__all__), own - set(port.__all__)
+
+
+# Names a JAX module defines or imports that its port counterpart need not
+# have, each with its reason.  Beyond these, imported modules and names
+# imported from JAX itself (`Mesh`, `PartitionSpec`, `shard_map`, Pallas)
+# are not compared: the port imports no JAX.
+CONVERSE_EXCEPTIONS = {
+    # the Pallas-TPU compiler-parameter shim of kernels/_compat.py, the one
+    # file without a counterpart: the CUDA kernels take no such parameters
+    "CompilerParams",
+    # typing names, for annotations only
+    "Tuple", "Dict", "Optional", "Callable",
+    # launch/roofline.py's parsers of XLA's compiled HLO text, which the
+    # port never produces (`count_collectives` reads the torch step)
+    "split_computations", "entry_computation", "parse_collectives",
+    # core/fleetshard.py imports the plan cost model's constants; the
+    # port's reads them from `plancost` where it uses them
+    "COMPILE_S", "DISPATCH_OVERHEAD_S", "STEP_COST_S",
+    # plain imports, not surface: distributed/rebalance.py's from core.cas,
+    # train/trainer.py's from tpuprobe.monitor, launch/hillclimb.py's from
+    # configs.base
+    "allow_pull", "SimClock", "input_specs",
+}
+_JAX_FILES = sorted(str(p.relative_to(ROOT / "src" / "repro"))
+                    for p in (ROOT / "src" / "repro").rglob("*.py"))
+
+
+def _is_module(base: str, name: str) -> bool:
+    """Whether ``from base import name`` imports a module: by the files of
+    the two packages for their own modules (importing a JAX module to ask
+    would run it), by `importlib` for the standard library's and others'."""
+    import importlib.util
+    parts = base.split(".")
+    if parts[0] in ("repro", "repro_torch"):
+        pkg = ROOT / "src" / Path(*parts) / name
+        return pkg.with_suffix(".py").exists() or (pkg / "__init__.py").exists()
+    try:
+        return importlib.util.find_spec(f"{base}.{name}") is not None
+    except (ImportError, AttributeError, ValueError):
+        return False
+
+
+def _module_names(path: Path) -> dict:
+    """A module's top-level names, read with `ast`: each name it defines
+    (function, class, assigned name) or imports, mapped to where it came
+    from ("def", "module", or the module it is imported from)."""
+    import ast
+    names = {}
+    for node in ast.parse(path.read_text()).body:
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef,
+                             ast.ClassDef)):
+            names[node.name] = "def"
+        elif isinstance(node, (ast.Assign, ast.AnnAssign)):
+            targets = node.targets if isinstance(node, ast.Assign) \
+                else [node.target]
+            for t in targets:
+                for e in (t.elts if isinstance(t, ast.Tuple) else [t]):
+                    if isinstance(e, ast.Name):
+                        names[e.id] = "def"
+        elif isinstance(node, ast.Import):
+            for a in node.names:
+                names[a.asname or a.name.split(".")[0]] = "module"
+        elif isinstance(node, ast.ImportFrom):
+            assert node.level == 0, (path, node.module)
+            for a in node.names:
+                names[a.asname or a.name] = (
+                    "module" if _is_module(node.module, a.name)
+                    else node.module)
+    return names
+
+
+def test_every_jax_file_but_the_pallas_shim_has_a_counterpart():
+    missing = [f for f in _JAX_FILES
+               if not (ROOT / "src" / "repro_torch" / f).exists()]
+    assert missing == ["kernels/_compat.py"]
+
+
+@pytest.mark.parametrize("rel", [f for f in _JAX_FILES
+                                 if f != "kernels/_compat.py"])
+def test_port_modules_have_the_jax_modules_names(rel):
+    """The converse of the subset checks above: each public name the JAX
+    module defines or imports is a top-level name of its port counterpart,
+    but for imported modules, names imported from JAX and
+    `CONVERSE_EXCEPTIONS`."""
+    ref = _module_names(ROOT / "src" / "repro" / rel)
+    port = _module_names(ROOT / "src" / "repro_torch" / rel)
+    want = {n for n, src in ref.items()
+            if not n.startswith("_") and src != "module"
+            and not (src.split(".")[0] == "jax")
+            and n not in CONVERSE_EXCEPTIONS}
+    assert want <= set(port), sorted(want - set(port))
 
 
 @pytest.mark.parametrize("name", ["vtop", "attacker", "plancost",

@@ -131,6 +131,57 @@ def test_bf16_probability_rounding_stays_within_bf16_tolerance(
     np.testing.assert_allclose(_np(got), _np(ref), **TOL["bfloat16"])
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,Sq,Sk,Hq,Hkv,D,causal", [
+    (1, 100, 100, 4, 2, 192, True),    # GQA 2, a length no tile divides
+    (2, 77, 77, 4, 1, 256, False),     # GQA 4, bidirectional
+])
+def test_flash_attention_wide_heads_match_pallas(B, Sq, Sk, Hq, Hkv, D,
+                                                 causal, dtype):
+    """Head dims past 160, which the CUDA kernel walks in chunks and
+    column slices: the port's entry point against the Pallas kernel in
+    interpret mode and the JAX reference."""
+    torch.set_num_threads(1)
+    rng = np.random.default_rng(Sq + D + Hq)
+    arrs = [rng.standard_normal((B, h, S, D), np.float32)
+            for h, S in ((Hq, Sq), (Hkv, Sk), (Hkv, Sk))]
+    (jq, q), (jk, k), (jv, v) = (_pair(a, dtype) for a in arrs)
+    out = fa_kernel.flash_attention_bhsd(q, k, v, causal=causal)
+    assert out.dtype == TDT[dtype] and out.shape == q.shape
+    pallas = jflash_bhsd(jq, jk, jv, causal=causal, interpret=True)
+    ref = jfa_ref.attention_ref(jq, jk, jv, causal)
+    np.testing.assert_allclose(_np(out), _np(pallas), **TOL[dtype])
+    np.testing.assert_allclose(_np(out), _np(ref), **TOL[dtype])
+
+
+# shapes the Pallas kernel takes: past the old caps (head dims to 512,
+# grids past 65,535 batches or query blocks) and the narrowest head
+@pytest.mark.parametrize("q,k", [
+    ((1, 8, 200, 176), (1, 2, 200, 176)), ((2, 4, 130, 200), (2, 2, 70, 200)),
+    ((2, 16, 2048, 256), (2, 16, 2048, 256)), ((1, 4, 64, 512), (1, 1, 64, 512)),
+    ((65536, 1, 8, 16), (65536, 1, 8, 16)),
+    ((1, 2, 128 * 65536 + 1, 64), (1, 2, 64, 64)),
+    ((1, 2, 64, 1), (1, 2, 64, 1))])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_checks_take_the_pallas_domain(q, k, dtype):
+    fa_kernel.check_args(q, k, k)
+    fa_kernel.check_args(q, k, k, (dtype,) * 3)
+
+
+@pytest.mark.parametrize("q,k,dtypes,err", [
+    ((1, 3, 16, 256), (1, 2, 16, 256), None, ValueError),   # Hq % Hkv
+    ((1, 4, 16, 64), (1, 2, 16, 32), None, ValueError),     # head dims
+    ((1, 4, 16, 64), (1, 0, 16, 64), None, ValueError),     # no kv heads
+    ((1, 4, 16, 64), (1, 2, 16, 64), (torch.float16,) * 3, TypeError),
+    ((1, 4, 16, 64), (1, 2, 16, 64), (torch.float64,) * 3, TypeError),
+    ((1, 4, 16, 64), (1, 2, 16, 64),
+     (torch.float32, torch.bfloat16, torch.float32), TypeError)])
+def test_flash_attention_checks_refuse_what_the_kernels_refuse(q, k, dtypes,
+                                                              err):
+    with pytest.raises(err):
+        fa_kernel.check_args(q, k, k, dtypes)
+
+
 def test_flash_attention_wrapper_rejects_bad_shapes():
     q = torch.zeros(1, 3, 16, 8)
     with pytest.raises(ValueError):
@@ -180,6 +231,62 @@ def test_ssd_scan_sweep_matches_jax(b, S, h, p, n, chunk, dtype):
         np.testing.assert_allclose(_np(st), _np(want_st), **st_tol)
     np.testing.assert_allclose(_np(ry), _np(jy_r), **TOL[dtype])
     np.testing.assert_allclose(_np(rst), _np(jst_r), **st_tol)
+
+
+# A chunk of 256 sums twice the products of one of 128 into each y, in
+# f32 in another order on each side: on the first case below JAX's y is
+# 3.2e-5 and the port's 4.0e-5 from a float64 evaluation of the same
+# function, 7 of 65,536 values 5.4e-5 apart.  So y is held as the full
+# prefill shapes are on the card (chip_smoke.py's SSD_TOL_FULL, 1e-4); the
+# state, and every other value, within test_kernels.py's 2e-5.
+SSD_TOL_CHUNK_256 = dict(rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("b,S,h,p,n,chunk,y_tol", [
+    (1, 512, 2, 64, 128, 256, SSD_TOL_CHUNK_256),   # Mamba2's chunk
+    (1, 256, 2, 128, 256, 128, TOL["float32"]),     # head dim 128, state 256
+])
+def test_ssd_scan_wide_tiles_match_jax(b, S, h, p, n, chunk, y_tol):
+    """Chunks, head dims and states past one tile of the CUDA kernel: the
+    port's entry point against JAX's `ssd_scan` (the Pallas grid in
+    interpret mode) and `ssd_chunked_ref`."""
+    torch.set_num_threads(1)
+    xa, dta, Aa, Ba, Ca, Da = _ssd_inputs(b, S, h, p, n, seed=S + p + n)
+    (jx, x), (jdt, dt), (jA, A), (jB, B), (jC, C), (jD, D) = (
+        _pair(a) for a in (xa, dta, Aa, Ba, Ca, Da))
+    y, st = ssd_ops.ssd_scan(x, dt, A, B, C, D, chunk=chunk)
+    for want_y, want_st in (
+            jssd_ops.ssd_scan(jx, jdt, jA, jB, jC, jD, chunk=chunk),
+            jm2.ssd_chunked_ref(jx, jdt, jA, jB, jC, jD, chunk)):
+        np.testing.assert_allclose(_np(y), _np(want_y), **y_tol)
+        np.testing.assert_allclose(_np(st), _np(want_st), **TOL["float32"])
+
+
+# the Pallas grid's domain: any chunk, head dim, state and B nc (here past
+# gridDim.y's 65,535), and block_h dividing H once capped at H
+@pytest.mark.parametrize("B,H,nc,L,p,n,block_h", [
+    (2, 80, 8, 256, 64, 128, 8), (1, 4, 2, 128, 128, 256, 4),
+    (1, 3, 3, 200, 97, 161, 8), (1, 2, 2, 512, 32, 32, 1),
+    (4100, 1, 16, 2, 4, 4, 8), (1, 2, 65536, 1, 1, 1, 2)])
+def test_ssd_scan_checks_take_the_pallas_domain(B, H, nc, L, p, n, block_h):
+    shapes = ((B, H, nc, L, p), (B, H, nc, L), (B, H, nc, L), (B, nc, L, n),
+              (B, nc, L, n))
+    ssd_kernel.check_args(*shapes, block_h=block_h)
+    ssd_kernel.check_args(*shapes, block_h=block_h,
+                          dtypes=(torch.float32,) * 5)
+
+
+@pytest.mark.parametrize("H,block_h,n_c,dtypes,err", [
+    (6, 4, 16, None, ValueError),                 # H % block_h
+    (4, 8, 8, None, ValueError),                  # C's state width
+    (4, 8, 16, (torch.bfloat16,) * 5, TypeError),
+    (4, 8, 16, (torch.float32,) * 4 + (torch.float64,), TypeError)])
+def test_ssd_scan_checks_refuse_what_the_kernels_refuse(H, block_h, n_c,
+                                                        dtypes, err):
+    with pytest.raises(err):
+        ssd_kernel.check_args((1, H, 2, 32, 8), (1, H, 2, 32), (1, H, 2, 32),
+                              (1, 2, 32, 16), (1, 2, 32, n_c),
+                              block_h=block_h, dtypes=dtypes)
 
 
 def _grid_inputs(B, H, nc, L, p, n, seed):
