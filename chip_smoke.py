@@ -2723,6 +2723,70 @@ def dryrun_launches(arch: str) -> dict:
     return {"flash_attention": get_config(arch).n_layers}
 
 
+# The three placements path (ix) holds to XLA's: the decode over a kv cache
+# split along its sequence (collective bytes at or under XLA's raw total),
+# the SSD in-projection's column groups (the all-gathers issued in
+# models/mamba2.py move the in-projection's and conv's weights, once a
+# layer, and no activation) and the cross-pod gradient (reduce-scattered
+# over "data", its shard all-reduced over "pod")
+DRYRUN_DECODE = "qwen2.5-14b_decode_32k_single"
+DRYRUN_SSD = "zamba2-2.7b_prefill_32k_single"
+DRYRUN_PODS = ("qwen2.5-14b_train_4k_mb2_single",
+               "qwen2.5-14b_train_4k_mb2_multi")
+
+
+def ssd_weight_bytes(cfg, itemsize: int = 2) -> int:
+    """The bytes of every Mamba2 layer's ``in_proj``, ``conv_w`` and
+    ``conv_b`` of ``cfg`` at ``itemsize``: what a prefill's column groups
+    gather whole (`mamba2._proj_and_conv`), once a layer."""
+    from repro_torch.models import lm
+    mc = lm.mamba_config(cfg)
+    conv = mc.d_inner + 2 * mc.d_state
+    return cfg.n_layers * itemsize * (
+        cfg.d_model * (conv + mc.d_inner + mc.n_heads)
+        + mc.d_conv * conv + conv)
+
+
+def placement_checks(records: dict, golden: dict):
+    """``(lines, faults)`` of the three placements `DRYRUN_DECODE`,
+    `DRYRUN_SSD` and `DRYRUN_PODS` hold, from path (ix)'s records (their
+    collective bytes by kind, group and site) and the dry-run golden's
+    full-width records."""
+    from repro_torch.configs.base import get_config
+    lines, faults = [], []
+    rec = records[DRYRUN_DECODE]["collectives"]
+    jax_total = golden["full"][DRYRUN_DECODE]["collectives"][
+        "total_bytes_per_device"]
+    lines.append(f"{DRYRUN_DECODE}: collectives "
+                 f"{rec['total_bytes_per_device']:,} B a rank "
+                 f"{rec['by_kind']}, at most XLA's raw {jax_total:,}")
+    if rec["total_bytes_per_device"] > jax_total:
+        faults.append(lines[-1])
+    sites = records[DRYRUN_SSD]["collectives"]["by_site"]
+    mine = {k: v for k, v in sites.items()
+            if k.startswith("all-gather ") and "models/mamba2.py" in k}
+    want = ssd_weight_bytes(get_config(records[DRYRUN_SSD]["arch"]))
+    lines.append(f"{DRYRUN_SSD}: all-gathers issued in models/mamba2.py "
+                 f"{mine} = {sum(mine.values()):,} B, the in-projection's "
+                 f"and conv's weights {want:,} B")
+    if sum(mine.values()) != want or any("gated_rms_norm" in k
+                                         for k in mine):
+        faults.append(lines[-1])
+    single, multi = (records[n] for n in DRYRUN_PODS)
+    nm = multi["analytic"]["microbatches"]
+    shard = multi["analytic"]["params_global"] * 4 // 16
+    extra = (multi["collectives"]["by_kind"].get("all-reduce", 0)
+             - single["collectives"]["by_kind"].get("all-reduce", 0))
+    pod = multi["collectives"]["by_group_size"].get("2", 0)
+    lines.append(f"{DRYRUN_PODS[1]}: all-reduce {extra:+,} B beside "
+                 f"{DRYRUN_PODS[0]}, over \"pod\" alone {pod:,} B; at most "
+                 f"one data shard of the f32 parameters a microbatch, "
+                 f"{shard * nm:,} B")
+    if extra > shard * nm or pod > shard * nm:
+        faults.append(lines[-1])
+    return lines, faults
+
+
 def dryrun_main_path(smoke, card):
     """Path (ix): `launch.dryrun` on the card, each cell of `DRYRUN_RUN`
     as rank 0 of a fake 256- or 512-rank group of its own, after (viii):
@@ -2814,6 +2878,12 @@ def dryrun_main_path(smoke, card):
                                  f"{rec['plain_calls']}), counters "
                                  f"{launches} (plain {plain}); expected "
                                  f"{expected} and no plain call")
+    lines, faults = placement_checks(
+        {n: c["record"] for n, c in res["cells"].items()}, golden)
+    for line in lines:
+        print(f"dryrun: placement: {line} on {card}")
+    if faults:
+        raise AssertionError(f"dryrun: placements short of XLA's: {faults}")
     arch, shape, mp = DRYRUN_SKIP
     rec = dryrun.run_cell(arch, shape, mp)
     want = golden["skips"][tg.dryrun_cell_name(arch, shape, mp)]

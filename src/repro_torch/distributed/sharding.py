@@ -29,6 +29,7 @@ Logical axes:
 from __future__ import annotations
 
 import contextlib
+import functools
 import re
 import threading
 from typing import Dict, List, Optional, Tuple
@@ -38,7 +39,8 @@ from repro_torch._tree import tree_map, tree_map_with_path
 __all__ = ["DEFAULT_RULES", "resolve", "placements", "use_mesh_rules",
            "shard_hint", "PARAM_RULES", "path_str", "logical_axes_for",
            "param_sharding", "param_spec", "distribute_tree", "gather_tree",
-           "block_offset", "on_blocks", "reduce_partial", "bind_mesh_rules"]
+           "block_offset", "on_blocks", "reduce_partial", "bind_mesh_rules",
+           "hint_placements", "column_groups", "redistribute"]
 
 # logical axis -> mesh dim (None = replicated)
 DEFAULT_RULES: Dict[str, Optional[object]] = {
@@ -194,14 +196,15 @@ def on_blocks(fn, in_placements, out_placements, *args):
 
 def reduce_partial(x):
     """A DTensor's pending sums (``Partial`` placements) reduced, its other
-    placements kept; anything else as it is.  For ops whose DTensor rule
-    cannot take a partial input (see the callers)."""
+    placements kept (`redistribute`: the gradient passes back whole);
+    anything else as it is.  For ops whose DTensor rule cannot take a
+    partial input (see the callers)."""
     from torch.distributed.tensor import DTensor, Replicate
     if not isinstance(x, DTensor) or not any(p.is_partial()
                                              for p in x.placements):
         return x
-    return x.redistribute(x.device_mesh, [Replicate() if p.is_partial()
-                                          else p for p in x.placements])
+    return redistribute(x, [Replicate() if p.is_partial() else p
+                            for p in x.placements])
 
 
 def distribute_tree(tree, mesh, shardings):
@@ -234,6 +237,156 @@ def shard_hint(x, *logical):
     mesh, rules = state
     spec = resolve(rules, mesh, *logical)
     return x.redistribute(mesh, placements(spec, mesh))
+
+
+def redistribute(x, placements):
+    """``x.redistribute(x.device_mesh, placements)`` with a backward that
+    takes the gradient to ``x``'s placements in the order GSPMD
+    transposes the forward's collectives:
+
+      * the mesh dims whose pending sum the forward reduced get the
+        gradient whole (``Replicate``): a sum's gradient is each
+        addend's, and DTensor cannot split a sum's gradient back into a
+        pending average (``Partial("avg")``, a mean over a split dim);
+      * the other dims reduce-scatter and slice onto ``x``'s shards
+        first, then all-reduce: a gradient pending over ("pod", "data")
+        onto an FSDP shard is reduce-scattered over "data" and only its
+        shard all-reduced over "pod".  DTensor reduces the mesh dims in
+        their order, so it all-reduced the whole gradient over "pod".
+
+    The FSDP gather (`train.train_step._fsdp_gathered`) and
+    `reduce_partial` take it.  `shard_hint` keeps DTensor's own backward:
+    with the hints' reduced sums' gradients passed on whole, DTensor
+    picks other strategies for the products before them, which gather
+    more at full width and raise the peak (PERF.md §6)."""
+    from torch.distributed.tensor import DTensor
+    if not isinstance(x, DTensor):
+        return x
+    if list(x.placements) == list(placements):
+        return x
+    return _redistribute_fn().apply(x, tuple(placements))
+
+
+@functools.lru_cache(maxsize=None)
+def _redistribute_fn():
+    """`redistribute`'s autograd function, built at its first use (this
+    module imports torch only where a DTensor is met)."""
+    import torch
+    from torch.distributed.tensor import Replicate
+
+    class Redistribute(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x, placements):
+            ctx.meta = (x.device_mesh, tuple(x.placements),
+                        tuple(placements))
+            return x.redistribute(x.device_mesh, list(placements))
+
+        @staticmethod
+        def backward(ctx, g):
+            mesh, before, after = ctx.meta
+            want = [Replicate() if b.is_partial() and not a.is_partial()
+                    else b for b, a in zip(before, after)]
+            first = [w if w.is_shard() else p
+                     for w, p in zip(want, g.placements)]
+            if first != list(g.placements):
+                g = g.redistribute(mesh, first)
+            if want != list(g.placements):
+                g = g.redistribute(mesh, want)
+            return g, None
+
+    return Redistribute
+
+
+def hint_placements(*logical):
+    """The placements `shard_hint` would give a DTensor with these
+    logical axes under the active `use_mesh_rules` context, or None
+    outside one."""
+    state = getattr(_ctx, "state", None)
+    if state is None:
+        return None
+    mesh, rules = state
+    return placements(resolve(rules, mesh, *logical), mesh)
+
+
+def column_groups(w, widths, group_placements):
+    """The column groups of DTensor ``w`` (..., N): consecutive slices of
+    ``widths`` (summing to N) of its last dim, group i placed as
+    ``group_placements[i]``, each group on the mesh dims that split it
+    in blocks of its own.  ``w``'s columns may be split in blocks that do
+    not align with the groups (Mamba2's in-projection packs z, x, B, C
+    and dt in one matrix), so ``w`` is gathered over the mesh dims that
+    split its columns (the weight, never its product) and each rank keeps
+    its block of each group.  The backward never gathers a gradient:
+    each rank writes its groups' gradients into a zero block of the whole
+    columns, and that pending sum is reduce-scattered onto ``w``'s
+    split; on other mesh dims the gradient keeps the placement the
+    groups' gradients arrive with (a pending sum over the batch stays
+    pending)."""
+    return _column_groups_fn().apply(
+        w, tuple(widths), tuple(tuple(p) for p in group_placements))
+
+
+@functools.lru_cache(maxsize=None)
+def _column_groups_fn():
+    """`column_groups`' autograd function, built at its first use (this
+    module imports torch only where a DTensor is met)."""
+    import torch
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    class ColumnGroups(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, w, widths, group_placements):
+            mesh, last = w.device_mesh, w.ndim - 1
+            split = [p == Shard(last) for p in w.placements]
+            whole = w.redistribute(mesh, [Replicate() if s else p for s, p
+                                          in zip(split, w.placements)])
+            ctx.meta = (mesh, last, split, tuple(w.placements),
+                        tuple(w.shape), w.stride(), widths)
+            out, lo = [], 0
+            for width, pl in zip(widths, group_placements):
+                out.append(whole[..., lo:lo + width].redistribute(
+                    mesh, list(pl)))
+                lo += width
+            return tuple(out)
+
+        @staticmethod
+        def backward(ctx, *grads):
+            mesh, last, split, wpl, shape, stride, widths = ctx.meta
+            first = next(g for g in grads if g is not None)
+            # every group's gradient on the first's placements off the
+            # split dims (there: a block of the group's columns, a pending
+            # sum, or the whole on every rank)
+            other = [None if s else p for s, p in zip(split, first.placements)]
+            coord = mesh.get_coordinate()
+            local = first.to_local()
+            acc = local.new_zeros(local.shape[:-1] + (shape[last],))
+            lo = 0
+            for width, g in zip(widths, grads):
+                if g is not None:
+                    g = g.redistribute(mesh, [o if o is not None else p
+                                              for o, p in zip(other,
+                                                              g.placements)])
+                    # a group whole on every rank of a split dim counts
+                    # once, from the rank at coordinate 0
+                    mine = all(coord[m] == 0 for m, p in
+                               enumerate(g.placements)
+                               if split[m] and p.is_replicate())
+                    off = block_offset([p if split[m] else Replicate()
+                                        for m, p in enumerate(g.placements)],
+                                       mesh, last, width)
+                    if mine:
+                        gl = g.to_local()
+                        acc[..., lo + off:lo + off + gl.shape[-1]] = gl
+                lo += width
+            pending = DTensor.from_local(
+                acc, mesh, [Partial() if s else o
+                            for s, o in zip(split, other)],
+                run_check=False, shape=torch.Size(shape), stride=stride)
+            return (pending.redistribute(mesh, [p if s else o for s, p, o
+                                                in zip(split, wpl, other)]),
+                    None, None)
+
+    return ColumnGroups
 
 
 # ---------------------------------------------------------------------------

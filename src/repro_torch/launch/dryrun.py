@@ -4,6 +4,7 @@ as rank 0 of a fake 256- or 512-rank process group.  The port of
 
     python -m repro_torch.launch.dryrun --arch qwen2.5-14b --shape train_4k
     python -m repro_torch.launch.dryrun --all --mesh both [--device cpu]
+        [--microbatches N]
 
 The JAX module lowers and compiles each cell for 256 or 512 placeholder
 devices and reads XLA's memory, cost and collective analyses; it never
@@ -231,11 +232,12 @@ def _arg_bytes(cfg, shape, args) -> int:
     return n
 
 
-def _run_measured(step, args, device: str, sites: bool = False):
-    """One call of ``step(*args)`` under `roofline.count_collectives`,
-    its FLOPs counted (`_flop_counter`): ``(out, stats, flops, seconds,
-    peak)``, ``peak`` the bytes allocated on the card above what was
-    allocated before the call, at the call's peak (None on the CPU)."""
+def _run_measured(step, args, device: str):
+    """One call of ``step(*args)`` under `roofline.count_collectives`
+    (with each collective's site), its FLOPs counted (`_flop_counter`):
+    ``(out, stats, flops, seconds, peak)``, ``peak`` the bytes allocated
+    on the card above what was allocated before the call, at the call's
+    peak (None on the CPU)."""
     cuda = device == "cuda"
     if cuda:
         torch.cuda.synchronize()
@@ -243,7 +245,7 @@ def _run_measured(step, args, device: str, sites: bool = False):
         torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
     on_local, flops = _flop_counter()
-    out, stats = rl.count_collectives(step, *args, sites=sites,
+    out, stats = rl.count_collectives(step, *args, sites=True,
                                       on_local=on_local)
     if cuda:
         torch.cuda.synchronize()
@@ -295,7 +297,9 @@ def compile_cell(cfg: ArchConfig, shape: ShapeSpec, multi_pod: bool,
         one call, not two: a train step of full qwen2.5-14b takes minutes
         of host time on the card); ``bytes_accessed`` -1;
       * ``collectives``: `roofline.count_collectives` of the first call
-        (``tpu_corrected`` equals ``total``), ``ops`` its count;
+        (``tpu_corrected`` equals ``total``), ``ops`` its count,
+        ``by_site`` its bytes by ``"<kind> <site>"`` (the frame of the
+        port that issued each, `roofline.count_collectives`);
       * ``analytic``, ``roofline``: `roofline.analytic_costs` and
         `roofline.roofline_terms` with the counted bytes, as JAX.
 
@@ -331,6 +335,9 @@ def compile_cell(cfg: ArchConfig, shape: ShapeSpec, multi_pod: bool,
                               model_flops_dev=ana.model_flops_global / n_chips)
     mem_dev = arg_bytes + max(temp, 0) + out_bytes
     mf_dev = ana.model_flops_global / n_chips
+    by_site: Dict[str, int] = {}
+    for (kind, _, nbytes, _, _), site in zip(coll.calls, coll.sites):
+        by_site[f"{kind} {site}"] = by_site.get(f"{kind} {site}", 0) + nbytes
     return {
         "arch": cfg.name, "shape": shape.name,
         "mesh": _mesh_name(multi_pod),
@@ -361,6 +368,7 @@ def compile_cell(cfg: ArchConfig, shape: ShapeSpec, multi_pod: bool,
             "by_group_size": {str(k): int(v)
                               for k, v in coll.by_group_size.items()},
             "ops": coll.ops,
+            "by_site": by_site,
         },
         "analytic": {
             "flops_per_device": ana.flops_per_device,

@@ -95,8 +95,7 @@ def _run(cfg, shape: ShapeSpec, variant: str, multi_pod: bool,
             cfg, shape, mesh, hyper, device,
             cache_update="blend" if "blend" in variant else "dus",
             replicate_params_over_data="replparams" in variant)
-        out, coll, _, _, peak = _run_measured(step, args, device,
-                                              sites=True)
+        out, coll, _, _, peak = _run_measured(step, args, device)
         arg_bytes = _arg_bytes(cfg, shape, args)
         out_bytes = _local_bytes(out)
         del out, step, args

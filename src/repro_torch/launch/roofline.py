@@ -322,6 +322,9 @@ def _collective_kinds():
 
 _HERE = os.path.abspath(__file__)
 _PACKAGE = os.path.dirname(os.path.dirname(_HERE))
+# the placement helpers (`shard_hint`, `on_blocks`, `column_groups`, ...):
+# a collective they issue is sited at the model or step code calling them
+_HELPERS = os.path.join(_PACKAGE, "distributed", "sharding.py")
 
 
 def _site() -> str:
@@ -329,14 +332,16 @@ def _site() -> str:
     <node>"``, the autograd node running (autograd runs a CUDA backward on
     a thread of its own, with no frame of the port); else ``"file:line
     function"`` of the innermost frame of the port's package outside this
-    module (paths relative to the package), or "?"."""
+    module and the placement helpers of `distributed.sharding` (paths
+    relative to the package), or "?"."""
     node = torch._C._current_autograd_node()
     if node is not None:
         return f"backward of {node.name()}"
     f = sys._getframe(1)
     while f is not None:
         path = os.path.abspath(f.f_code.co_filename)
-        if path.startswith(_PACKAGE + os.sep) and path != _HERE:
+        if path.startswith(_PACKAGE + os.sep) and path not in (_HERE,
+                                                               _HELPERS):
             return (f"{os.path.relpath(path, _PACKAGE)}:{f.f_lineno} "
                     f"{f.f_code.co_name}")
         f = f.f_back

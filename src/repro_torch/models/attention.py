@@ -149,29 +149,32 @@ def _attend(q, k, v, cfg: AttnConfig, impl: str) -> torch.Tensor:
                      f"'kernel'")
 
 
-def _head_ways(q) -> int:
-    """The ranks DTensor q's head dim (2) is split over."""
-    ways = 1
-    for m, p in enumerate(q.placements):
-        if p == Shard(2):
-            ways *= q.device_mesh.size(m)
-    return ways
-
-
 def _block_placements(q, k, cfg: AttnConfig):
     """``(qpl, kpl, q_off, kv_off)`` of DTensor q (B, S, H, D) and k (B,
     S, Hkv, D) run on each rank's (batch, heads) block: query heads keep
     the mesh dims their hint gave them; kv heads keep theirs where they
-    match the query heads', else are whole; anything else (a sequence
-    sharded cache) is whole.  ``q_off`` and ``kv_off`` are the global
-    index of the rank's first query and kv head.  Kv heads split over
-    more ranks than there are (qwen2.5-14b's 8 cached kv heads over 16
-    "model" ranks) are whole: a rank's query heads meet another rank's
-    kv head."""
-    even = cfg.n_kv_heads % _head_ways(q) == 0
+    match the query heads', else are whole.  A kv cache split along its
+    sequence over a mesh dim (``cache_seq``) keeps that split, and the
+    query heads are whole on that dim: each rank meets every head with
+    its own positions (`_decode_on_blocks` combines the ranks' partial
+    softmaxes).  Anything else is whole.  ``q_off`` and ``kv_off`` are
+    the global index of the rank's first query and kv head.  Kv heads
+    split over more ranks than there are (qwen2.5-14b's 8 kv heads over
+    16 "model" ranks) are whole: a rank's query heads meet another
+    rank's kv head."""
+    mesh = q.device_mesh
+    seq = [pk == Shard(1) for pk in k.placements]
+    ways = 1
+    for m, pq in enumerate(q.placements):
+        if pq == Shard(2) and not seq[m]:
+            ways *= mesh.size(m)
+    even = cfg.n_kv_heads % ways == 0
     qpl, kpl = [], []
-    for pq, pk in zip(q.placements, k.placements):
-        if pq == Shard(0):
+    for m, (pq, pk) in enumerate(zip(q.placements, k.placements)):
+        if seq[m]:
+            qpl.append(Replicate())
+            kpl.append(pk)
+        elif pq == Shard(0):
             qpl.append(pq)
             kpl.append(pq)
         elif pq == Shard(2):
@@ -180,7 +183,6 @@ def _block_placements(q, k, cfg: AttnConfig):
         else:
             qpl.append(Replicate())
             kpl.append(Replicate())
-    mesh = q.device_mesh
     return (qpl, kpl, shd.block_offset(qpl, mesh, 2, cfg.n_heads),
             shd.block_offset(kpl, mesh, 2, cfg.n_kv_heads))
 
@@ -251,21 +253,51 @@ def _write_at(cache: torch.Tensor, new: torch.Tensor, pos: int):
     own block of the copy, the one whose sequence range holds ``pos``:
     DTensor's ``aten.copy_`` into a slice of a cache sharded along its
     sequence writes the slice of every rank's block (wrong values, no
-    error), so the write is placed explicitly.  The copy keeps the
-    cache's global shape, which `local_map` would take to be the block
-    times the ways: wrong for kv heads split unevenly (qwen2.5-14b's 8
-    over 16 "model" ranks)."""
+    error), so the write is placed explicitly (`_on_cache_block`)."""
     if not isinstance(cache, DTensor):
         out = cache.clone()
         out[:, pos:pos + 1] = new.to(out.dtype)
         return out
+
+    def write(block, nl, off):
+        out = block.clone()
+        if 0 <= pos - off < out.shape[1]:
+            out[:, pos - off:pos - off + 1] = nl.to(out.dtype)
+        return out
+    return _on_cache_block(write, cache, new)
+
+
+def _blend_at(cache: torch.Tensor, new: torch.Tensor, pos: int):
+    """``cache`` (B, Smax, Hkv, D) with ``new`` (B, 1, Hkv, D) selected at
+    sequence position ``pos`` by a one-hot mask over the sequence, a
+    rewrite of the whole cache (the JAX package's collective-free write
+    for sequence-sharded caches).  On a DTensor each rank masks its own
+    block by global position (`_on_cache_block`), so nothing of the
+    cache's length moves between ranks."""
+    if not isinstance(cache, DTensor):
+        sel = (torch.arange(cache.shape[1], device=cache.device)
+               == pos)[None, :, None, None]
+        return torch.where(sel, new.to(cache.dtype), cache)
+
+    def blend(block, nl, off):
+        sel = (off + torch.arange(block.shape[1], device=block.device)
+               == pos)[None, :, None, None]
+        return torch.where(sel, nl.to(block.dtype), block)
+    return _on_cache_block(blend, cache, new)
+
+
+def _on_cache_block(fn, cache, new):
+    """``fn(block, new_block, off)`` on this rank's block of DTensor
+    ``cache``, whose first position is global position ``off``, with
+    ``new`` placed like the cache but whole along the sequence; the
+    result as a DTensor of the cache's global shape and placements
+    (`local_map` would take the global shape to be the block times the
+    ways: wrong for kv heads split unevenly, qwen2.5-14b's 8 over 16
+    "model" ranks)."""
     mesh, cpl = cache.device_mesh, list(cache.placements)
     npl = [Replicate() if p == Shard(1) else p for p in cpl]
     off = shd.block_offset(cpl, mesh, 1, cache.shape[1])
-    out = cache.to_local().clone()
-    if 0 <= pos - off < out.shape[1]:
-        out[:, pos - off:pos - off + 1] = \
-            new.redistribute(mesh, npl).to_local().to(out.dtype)
+    out = fn(cache.to_local(), new.redistribute(mesh, npl).to_local(), off)
     return DTensor.from_local(out, mesh, cpl, run_check=False,
                               shape=cache.shape, stride=cache.stride())
 
@@ -286,6 +318,42 @@ def _grouped_decode(q, k, v, n_kv: int, pos: int):
     return torch.einsum("bhgqk,bkhd->bqhgd", p, vf)
 
 
+def _grouped_decode_partial(q, k, v, n_kv: int, pos: int, off: int,
+                            groups):
+    """`_grouped_decode` on one block of the cache's positions, the first
+    global position ``off``, combined over the ranks of ``groups`` (one
+    ``(mesh, mesh dim)`` each) that hold the other blocks.  Each rank
+    keeps its softmax unnormalized in f32: the running max m, the sum l
+    and the weighted values o.  The ranks' maxima are all-reduced; each
+    rank rescales (o, l) to the common max and the sums are all-reduced
+    as one (B, n_kv, g, 1, D + 1) tensor.  Only these move, never the
+    cache.  A block wholly past ``pos`` has p = 0, so l = 0 and o = 0;
+    masked scores are ``NEG_INF``, finite, so m less the common max is
+    never inf - inf."""
+    from torch.distributed import _functional_collectives as funcol
+
+    def all_reduce(t, op):
+        for g in groups:
+            t = funcol.all_reduce(t, op, g)
+        return t.wait() if isinstance(t, funcol.AsyncCollectiveTensor) \
+            else t
+
+    B, _, H, D = q.shape
+    qg = q.reshape(B, 1, n_kv, H // n_kv, D).float()
+    kf = k.float()
+    vf = v.float()
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, kf) * (D ** -0.5)
+    mask = (off + torch.arange(kf.shape[1], device=q.device)
+            <= pos)[None, None, None, None, :]
+    s = torch.where(mask, s, NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.where(mask, torch.exp(s - m), 0.0)
+    ol = torch.cat([torch.einsum("bhgqk,bkhd->bhgqd", p, vf),
+                    p.sum(dim=-1, keepdim=True)], dim=-1)
+    ol = all_reduce(ol * torch.exp(m - all_reduce(m, "max")), "sum")
+    return (ol[..., :D] / ol[..., D:]).permute(0, 3, 1, 2, 4)
+
+
 def _decode_on_blocks(q, k, v, cfg: AttnConfig, pos: int):
     """`_grouped_decode` on each rank's (batch, heads) block (B_l, 1, H_l,
     D): each rank groups its own heads against the kv heads they meet
@@ -293,14 +361,24 @@ def _decode_on_blocks(q, k, v, cfg: AttnConfig, pos: int):
     heads split over more ranks than there are kv heads per kv head
     (uneven unflatten), and torch 2.11's refuses the grouped einsum's
     flatten of a block whose kv-head dim is split ("flatten multiple
-    dimensions ... being sharded"), an even split too."""
+    dimensions ... being sharded"), an even split too.  A cache split
+    along its sequence stays split: each rank attends over its own
+    positions and the ranks' partial softmaxes are combined
+    (`_grouped_decode_partial`), as XLA keeps such a cache sharded."""
     qpl, kpl, q_off, kv_off = _block_placements(q, k, cfg)
     group = cfg.n_heads // cfg.n_kv_heads
+    mesh = q.device_mesh
+    groups = [(mesh, m) for m, p in enumerate(kpl) if p == Shard(1)]
+    k_off = shd.block_offset(kpl, mesh, 1, k.shape[1])
 
     def local(ql, kl, vl):
         Bl, _, hl, D = ql.shape
         kl, vl, n = _kv_for_heads(kl, vl, q_off, kv_off, hl, group)
-        return _grouped_decode(ql, kl, vl, n, pos).reshape(Bl, 1, hl, D)
+        if groups:
+            out = _grouped_decode_partial(ql, kl, vl, n, pos, k_off, groups)
+        else:
+            out = _grouped_decode(ql, kl, vl, n, pos)
+        return out.reshape(Bl, 1, hl, D)
 
     return shd.on_blocks(local, (qpl, kpl, kpl), qpl, q, k, v)
 
@@ -321,10 +399,8 @@ def attention_decode(params, cfg: AttnConfig, x: torch.Tensor, cache,
     positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
     q, k_new, v_new = qkv_proj(params, cfg, x, positions, compute_dtype)
     if cache_update == "blend":
-        sel = (torch.arange(cache["k"].shape[1], device=x.device)
-               == pos)[None, :, None, None]
-        k_cache = torch.where(sel, k_new.to(cache["k"].dtype), cache["k"])
-        v_cache = torch.where(sel, v_new.to(cache["v"].dtype), cache["v"])
+        k_cache = _blend_at(cache["k"], k_new, pos)
+        v_cache = _blend_at(cache["v"], v_new, pos)
     elif cache_update == "dus":
         k_cache = _write_at(cache["k"], k_new, pos)
         v_cache = _write_at(cache["v"], v_new, pos)

@@ -266,11 +266,11 @@ def _transformer_layer(cfg, p, x, positions, compute_dtype, impl,
     (x, the MoE aux losses or None)."""
     # Megatron-SP: residuals and norms run sequence-sharded when the rules
     # map "seq_act" to "model" (a no-op otherwise)
-    x = shard_hint(x, "batch", "seq_act", "embed_act")
+    x = _resid(x)
     h = _whole_seq(L.rms_norm(x, p["norm_attn"]))
     x = x + _like_residual(attn.attention_train(
         p["attn"], attn_config(cfg), h, positions, compute_dtype, impl), x)
-    x = shard_hint(x, "batch", "seq_act", "embed_act")
+    x = _resid(x)
     h = _whole_seq(L.rms_norm(x, p["norm_mlp"]))
     if cfg.family == "moe":
         out, aux = moe_mod.moe_block(p["moe"], moe_config(cfg), h,
@@ -283,10 +283,20 @@ def _transformer_layer(cfg, p, x, positions, compute_dtype, impl,
                               x), None
 
 
+def _resid(x):
+    """The residual stream's hint (a no-op off a mesh): a pending sum
+    left by a tensor-parallel output projection is reduced here, once,
+    where GSPMD reduces it.  Left pending, DTensor reduces a copy for
+    each norm's mean square and carries the sum on into the next
+    products, whose model-split weights it then gathers to meet it."""
+    return shard_hint(x, "batch", "seq_act", "embed_act")
+
+
 def _mamba_layer(cfg, p, x, compute_dtype, impl):
-    h = L.rms_norm(x, p["norm_attn"])
-    return x + m2.mamba_block(p["ssm"], mamba_config(cfg), h, compute_dtype,
-                              impl)
+    x = _resid(x)
+    h = _whole_seq(L.rms_norm(x, p["norm_attn"]))
+    return x + _like_residual(m2.mamba_block(
+        p["ssm"], mamba_config(cfg), h, compute_dtype, impl), x)
 
 
 # matrix products whose outputs "dots" keeps (jax's checkpoint_dots)
@@ -360,7 +370,7 @@ def backbone(cfg: ArchConfig, params, x: torch.Tensor,
             x = body(shared[gi % cfg.n_shared_blocks],
                      layers[gi * every:(gi + 1) * every], x)
     n = max(1, cfg.n_layers)
-    return (L.rms_norm(x, params["final_norm"]),
+    return (L.rms_norm(_resid(x), params["final_norm"]),
             {k: v / n for k, v in aux.items()})
 
 
@@ -448,11 +458,12 @@ def init_caches(cfg: ArchConfig, batch: int, max_len: int,
 def _decode_block(cfg, p, h, cache, pos, compute_dtype, cache_update):
     """Attention + MLP (or MoE, gshard) on one token: a layer or a shared
     block."""
+    h = _resid(h)
     hh = L.rms_norm(h, p["norm_attn"])
     out, new_cache = attn.attention_decode(p["attn"], attn_config(cfg), hh,
                                            cache, pos, compute_dtype,
                                            cache_update)
-    h = h + out
+    h = _resid(h + out)
     hh = L.rms_norm(h, p["norm_mlp"])
     if "moe" in p:
         o, _ = moe_mod.moe_block(p["moe"], moe_config(cfg), hh,
@@ -462,6 +473,7 @@ def _decode_block(cfg, p, h, cache, pos, compute_dtype, cache_update):
 
 
 def _decode_mamba(cfg, p, h, cache, compute_dtype):
+    h = _resid(h)
     hn = L.rms_norm(h, p["norm_attn"])
     out, new_cache = m2.mamba_decode_step(p["ssm"], mamba_config(cfg), hn,
                                           cache, compute_dtype)
@@ -508,7 +520,7 @@ def decode_step(cfg: ArchConfig, params, caches, tokens: torch.Tensor,
         new["ssm"] = _stack(ssm)
         if shared:
             new["shared_attn"] = _stack(shared)
-    x = L.rms_norm(x, params["final_norm"])
+    x = L.rms_norm(_resid(x), params["final_norm"])
     logits = mask_vocab_pad(
         cfg, L.unembed_logits(params["head"], x, compute_dtype))
     return logits, new

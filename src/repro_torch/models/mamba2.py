@@ -82,6 +82,67 @@ def _split_proj(cfg: MambaConfig, zxbcdt: torch.Tensor):
     return z, x, B, C, dt
 
 
+def _proj_and_conv(params, cfg: MambaConfig, x: torch.Tensor,
+                   compute_dtype, state: Optional[torch.Tensor] = None):
+    """The in-projection, its five-way split and the causal conv: ``(z,
+    x, B, C, dt, new conv state)``, x, B and C through the conv.  Where
+    DTensor ``in_proj``'s columns are split (over "model"), its five
+    column groups and the three channel groups of ``conv_w`` and
+    ``conv_b`` are separate products (`shd.column_groups`), each placed
+    for its consumer: z, x and dt split by heads, as the scan and the
+    norm take them; B and C whole on every rank (the heads share them).
+    The packed product's shards end at offsets that are no group's
+    boundaries, so splitting it would move activations of the
+    projection's width between ranks; the groups move only the weights.
+    A decode step (one position a row, ``state`` the last K-1 conv
+    inputs) splits the packed product: its activations are a few rows,
+    the weights thousands (zamba2-2.7b ``decode_32k`` on 16 x 16: the 54
+    in-projections' weights 2.89 GB a token, their products 9 MB)."""
+    di, ds = cfg.d_inner, cfg.d_state
+    w, cw, cb = params["in_proj"], params["conv_w"], params["conv_b"]
+    if not (isinstance(w, DTensor) and Shard(w.ndim - 1) in w.placements
+            and state is None and x.shape[1] > 1):
+        zxbcdt = cast(x, compute_dtype) @ cast(w, compute_dtype)
+        z, xs, B, C, dt = _split_proj(cfg, zxbcdt)
+        conv_in = torch.cat([xs, B, C], dim=-1)
+        conv_out, new_state = _causal_conv(
+            conv_in, cast(cw, compute_dtype), cast(cb, compute_dtype), state)
+        return (z, conv_out[..., :di], conv_out[..., di:di + ds],
+                conv_out[..., di + ds:], dt, new_state)
+    heads = _head_dims(cfg, w)
+
+    def placed(t, by_heads: bool):
+        last = t.ndim - 1
+        return [Shard(last) if by_heads and m in heads else
+                Replicate() if p == Shard(last) else p
+                for m, p in enumerate(t.placements)]
+
+    wz, wx, wb, wc, wdt = shd.column_groups(
+        w, (di, di, ds, ds, cfg.n_heads),
+        [placed(w, h) for h in (True, True, False, False, True)])
+    cws, cbs = (shd.column_groups(t, (di, ds, ds),
+                                  [placed(t, h) for h in (True, False, False)])
+                for t in (cw, cb))
+    xc = cast(x, compute_dtype)
+    z, xs, B, C, dt = (xc @ cast(g, compute_dtype)
+                       for g in (wz, wx, wb, wc, wdt))
+    xs, B, C = (_causal_conv(a, cast(cwg, compute_dtype),
+                             cast(cbg, compute_dtype))[0]
+                for a, cwg, cbg in zip((xs, B, C), cws, cbs))
+    return z, xs, B, C, dt, None
+
+
+def _head_dims(cfg: MambaConfig, w) -> set:
+    """The mesh dims that split DTensor ``w``'s columns and that the
+    active rules split the heads over, where they split the heads
+    evenly; else none (the groups whole on every rank)."""
+    hp = shd.hint_placements("heads") or []
+    dims = {m for m, p in enumerate(hp)
+            if p == Shard(0) and w.placements[m] == Shard(w.ndim - 1)}
+    ways = math.prod(w.device_mesh.size(m) for m in dims)
+    return dims if cfg.n_heads % ways == 0 else set()
+
+
 def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                  state: Optional[torch.Tensor] = None):
     """Depthwise causal conv1d.  x: (B,S,C); w: (K,C); returns (y, new_state)
@@ -104,10 +165,12 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
 
 def gated_rms_norm(x: torch.Tensor, z: torch.Tensor, weight: torch.Tensor,
                    eps: float = 1e-6) -> torch.Tensor:
-    """Mamba2's norm: RMSNorm(x * silu(z)) * w."""
+    """Mamba2's norm: RMSNorm(x * silu(z)) * w.  On DTensors split along
+    d_inner the mean square is each rank's pending sum, all-reduced
+    (`shd.reduce_partial`), and nothing of d_inner's width moves."""
     h = x * F.silu(z)
     hf = h.float()
-    var = (hf * hf).mean(dim=-1, keepdim=True)
+    var = shd.reduce_partial((hf * hf).mean(dim=-1, keepdim=True))
     out = hf * torch.rsqrt(var + eps) * (1.0 + weight.float())
     return out.to(x.dtype)
 
@@ -212,14 +275,7 @@ def mamba_block(params, cfg: MambaConfig, x: torch.Tensor,
                 compute_dtype=torch.bfloat16, impl: str = "ref"):
     """Full Mamba2 block (training / prefill).  x: (B,S,d_model)."""
     Bsz, S, _ = x.shape
-    zxbcdt = cast(x, compute_dtype) @ cast(params["in_proj"], compute_dtype)
-    z, xs, B, C, dt = _split_proj(cfg, zxbcdt)
-    conv_in = torch.cat([xs, B, C], dim=-1)
-    conv_out, _ = _causal_conv(conv_in, cast(params["conv_w"], compute_dtype),
-                               cast(params["conv_b"], compute_dtype))
-    xs = conv_out[..., :cfg.d_inner]
-    B = conv_out[..., cfg.d_inner:cfg.d_inner + cfg.d_state]
-    C = conv_out[..., cfg.d_inner + cfg.d_state:]
+    z, xs, B, C, dt, _ = _proj_and_conv(params, cfg, x, compute_dtype)
     xh = xs.reshape(Bsz, S, cfg.n_heads, cfg.head_dim)
     xh = shard_hint(xh, "batch", "seq", "heads", "null")
     dt = dt + cast(params["dt_bias"], compute_dtype)
@@ -248,15 +304,8 @@ def mamba_decode_step(params, cfg: MambaConfig, x: torch.Tensor, cache,
                       compute_dtype=torch.bfloat16):
     """x: (B,1,d_model) -> (y, new_cache).  Constant work per token."""
     Bsz = x.shape[0]
-    zxbcdt = cast(x, compute_dtype) @ cast(params["in_proj"], compute_dtype)
-    z, xs, B, C, dt = _split_proj(cfg, zxbcdt)
-    conv_in = torch.cat([xs, B, C], dim=-1)                # (B,1,conv_dim)
-    conv_out, conv_state = _causal_conv(
-        conv_in, cast(params["conv_w"], compute_dtype),
-        cast(params["conv_b"], compute_dtype), state=cache["conv"])
-    xs = conv_out[..., :cfg.d_inner]
-    B = conv_out[..., cfg.d_inner:cfg.d_inner + cfg.d_state]
-    C = conv_out[..., cfg.d_inner + cfg.d_state:]
+    z, xs, B, C, dt, conv_state = _proj_and_conv(params, cfg, x,
+                                                 compute_dtype, cache["conv"])
     xh = xs.reshape(Bsz, cfg.n_heads, cfg.head_dim).float()
     dtv = F.softplus((dt[:, 0] + params["dt_bias"]).float())
     A = -torch.exp(params["A_log"].float())

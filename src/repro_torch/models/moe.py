@@ -93,7 +93,16 @@ def _router_probs(params, cfg: MoeConfig, x: torch.Tensor) -> torch.Tensor:
 def _top_k(probs: torch.Tensor, k: int):
     """(values, indices) of the ``k`` largest probabilities, ties to the
     lower index first as `jax.lax.top_k` breaks them: a stable descending
-    sort."""
+    sort.  On a DTensor the sort runs on each rank's rows (`on_blocks`),
+    the experts whole: the backward of DTensor's sort gathered the
+    batch's rows, the indices in int64 too, over every mesh dim that
+    splits it ("pod" among them)."""
+    if isinstance(probs, DTensor):
+        last = probs.ndim - 1
+        pl = [p if p.is_shard() and p.dim < last else Replicate()
+              for p in probs.placements]
+        return shd.on_blocks(lambda pr: _top_k(pr, k), (pl,), (pl, pl),
+                             probs)
     order = torch.sort(probs, dim=-1, descending=True, stable=True)
     return order.values[..., :k], order.indices[..., :k]
 
@@ -246,11 +255,15 @@ def moe_block(params, cfg: MoeConfig, x: torch.Tensor,
             sh = sh * g.to(cd)
         out = out + sh
 
-    # aux losses (f32)
-    me = probs.mean(dim=(0, 1))                               # (E,)
+    # aux losses (f32); on a mesh the means over the split batch are
+    # reduced here (`shd.reduce_partial`), so their gradients reach the
+    # router whole: left pending, DTensor reduce-scattered each token's
+    # router gradient over the batch's mesh dims ("pod" among them)
+    me = shd.reduce_partial(probs.mean(dim=(0, 1)))           # (E,)
     ce = onehot.sum(2).float().mean(dim=(0, 1)) / K
     lb = cfg.n_experts_real * torch.sum(me * ce) * cfg.lb_coef
-    z = torch.mean(torch.logsumexp(logits, dim=-1) ** 2) * cfg.router_z_coef
+    z = shd.reduce_partial(torch.mean(torch.logsumexp(logits, dim=-1) ** 2)
+                           ) * cfg.router_z_coef
     # exactly one (expert) entry per (b,s,k) routing slot is live
     frac_dropped = 1.0 - within_cap.float().sum() / (B * S * K)
     aux = {"lb_loss": lb, "z_loss": z, "frac_dropped": frac_dropped}

@@ -247,7 +247,10 @@ def _fsdp_gathered(params, mesh, rules):
     """Each DTensor parameter with its shards over the batch's mesh dims
     (FSDP: "embed" over "data") gathered, its other placements kept, as
     GSPMD gathers an FSDP weight for its matmul; the backward of the
-    gather reduce-scatters its gradient onto the shard.  Left to itself,
+    gather reduce-scatters its gradient onto the shard over "data" and
+    then all-reduces that shard over "pod" (`shd.redistribute`: DTensor's
+    own backward all-reduces the whole gradient over "pod" first, as the
+    mesh orders the dims).  Left to itself,
     DTensor's matmul rule may meet a weight's data-sharded contraction dim
     by moving the data-sharded activations instead, which moves rows of
     the batch between data ranks.  The routed experts' weights stay on
@@ -267,8 +270,8 @@ def _fsdp_gathered(params, mesh, rules):
                 p.placements[m].is_shard() for m in dims) or \
                 _EXPERTS.search(shd.path_str(path)):
             return p
-        return p.redistribute(mesh, [Replicate() if m in dims else q
-                                     for m, q in enumerate(p.placements)])
+        return shd.redistribute(p, [Replicate() if m in dims else q
+                                    for m, q in enumerate(p.placements)])
     return tree_map_with_path(one, params)
 
 

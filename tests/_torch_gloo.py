@@ -107,7 +107,8 @@ def _train_job(job, mesh):
 def _serve_job(job, mesh):
     """`jit_prefill` with ``impl`` "ref" and "kernel" (on CPU blocks the
     kernel's wrapper runs its plain version, and counts it), then
-    ``len(job["decode"])`` `jit_decode_step` calls from empty caches."""
+    ``len(job["decode"])`` `jit_decode_step` calls from empty caches, with
+    each cache write ("dus", then "blend": the ``_blend`` keys)."""
     cfg = tbase.reduced_config(tbase.get_config(job["arch"]))
     seq, batch = job["shape"]
     params = lm.params_from_numpy(job["params"], "cpu")
@@ -124,16 +125,18 @@ def _serve_job(job, mesh):
             "logits": logits.full_tensor().numpy(),
             "plain_calls": {k: _build.PLAIN_CALLS[k] - plain.get(k, 0)
                             for k in ("flash_attention", "ssd_scan")}}
-    decode, _, _, (_, cshard, _) = ts.jit_decode_step(
-        cfg, mesh, tbase.ShapeSpec("sharded", seq, batch, "decode"),
-        torch.float32, "dus")
-    caches = lm.init_caches(cfg, batch, seq, torch.float32, device="cpu")
-    res["decode"] = []
-    for pos, tokens in enumerate(job["decode"]):
-        logits, caches = decode(params, caches, torch.as_tensor(tokens), pos)
-        res["decode"].append(logits.full_tensor().numpy())
-    res["cache_misplaced"] = _misplaced(caches, cshard)
-    res["caches"] = _numpy(sharding.gather_tree(caches))
+    for update, key in (("dus", ""), ("blend", "_blend")):
+        decode, _, _, (_, cshard, _) = ts.jit_decode_step(
+            cfg, mesh, tbase.ShapeSpec("sharded", seq, batch, "decode"),
+            torch.float32, update)
+        caches = lm.init_caches(cfg, batch, seq, torch.float32, device="cpu")
+        res["decode" + key] = []
+        for pos, tokens in enumerate(job["decode"]):
+            logits, caches = decode(params, caches, torch.as_tensor(tokens),
+                                    pos)
+            res["decode" + key].append(logits.full_tensor().numpy())
+        res["cache_misplaced" + key] = _misplaced(caches, cshard)
+        res["caches" + key] = _numpy(sharding.gather_tree(caches))
     return res
 
 
@@ -187,7 +190,8 @@ def sharded_step_worker(rank, world, store, inbox, out):
             r["seconds"] = time.perf_counter() - t0
             if rank:
                 r = {k: v for k, v in r.items()
-                     if k in ("misplaced", "cache_misplaced", "metrics",
+                     if k in ("misplaced", "cache_misplaced",
+                              "cache_misplaced_blend", "metrics",
                               "unsharded", "seconds")}
             res[job["name"]] = r
         dist.destroy_process_group()

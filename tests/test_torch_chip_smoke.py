@@ -149,3 +149,62 @@ def test_path_ix_runs_the_moe_encoder_and_vlm_cells(smoke):
     ("pixtral-12b", {"flash_attention": 40})])
 def test_path_ix_prefill_launches(smoke, arch, launches):
     assert smoke.dryrun_launches(arch) == launches
+
+
+def test_ssd_weight_bytes_are_what_the_column_groups_gather(smoke):
+    """`ssd_weight_bytes` of reduced zamba2 (d_model 256, the dry run's)
+    equals the all-gathers its prefill issues in models/mamba2.py on 16 x
+    16, as `dryrun.compile_cell` records them by site."""
+    import torch
+    from repro_torch.configs.base import ShapeSpec, reduced_config
+    from repro_torch.launch import dryrun
+    from tests.torch_goldens import DRYRUN_D_MODEL, DRYRUN_PREFILL
+    cfg = reduced_config(get_config("zamba2_2p7b"),
+                         d_model=DRYRUN_D_MODEL["zamba2_2p7b"])
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        rec = dryrun.compile_cell(cfg, ShapeSpec(*DRYRUN_PREFILL), False,
+                                  device="cpu")
+    finally:
+        torch.set_num_threads(threads)
+    sites = rec["collectives"]["by_site"]
+    assert sum(sites.values()) == rec["collectives"]["total_bytes_per_device"]
+    gathered = sum(v for k, v in sites.items() if k.startswith("all-gather")
+                   and "models/mamba2.py" in k)
+    assert gathered == smoke.ssd_weight_bytes(cfg) > 0
+
+
+def _placement_records(smoke, decode=0, norm=0, extra=0, pod=0):
+    """Path (ix)'s records as `placement_checks` reads them, each check
+    met with no room, and moved by the given bytes."""
+    cfg = get_config("zamba2-2.7b")
+    shard = 1000 * 4 // 16
+    train = {"analytic": {"microbatches": 2, "params_global": 1000}}
+    sites = {"all-gather models/mamba2.py:1 _proj_and_conv":
+             smoke.ssd_weight_bytes(cfg)}
+    if norm:
+        sites["all-gather models/mamba2.py:2 gated_rms_norm"] = norm
+    records = {
+        smoke.DRYRUN_DECODE: {"collectives": {
+            "total_bytes_per_device": 100 + decode, "by_kind": {}}},
+        smoke.DRYRUN_SSD: {"arch": cfg.name,
+                           "collectives": {"by_site": sites}},
+        smoke.DRYRUN_PODS[0]: {**train, "collectives": {
+            "by_kind": {"all-reduce": 10}, "by_group_size": {}}},
+        smoke.DRYRUN_PODS[1]: {**train, "collectives": {
+            "by_kind": {"all-reduce": 10 + 2 * shard + extra},
+            "by_group_size": {"2": 2 * shard + pod}}}}
+    golden = {"full": {smoke.DRYRUN_DECODE: {"collectives": {
+        "total_bytes_per_device": 100}}}}
+    return records, golden
+
+
+@pytest.mark.parametrize("moved,faults", [
+    ({}, 0), ({"decode": 1}, 1), ({"norm": 2}, 1), ({"extra": 1}, 1),
+    ({"pod": 1}, 1), ({"decode": 1, "extra": 1}, 2)])
+def test_placement_checks_fail_past_xlas_placements(smoke, moved, faults):
+    """`placement_checks` passes path (ix)'s records at its bounds and
+    names each placement past them."""
+    lines, got = smoke.placement_checks(*_placement_records(smoke, **moved))
+    assert len(lines) == 3 and len(got) == faults

@@ -26,9 +26,11 @@ from repro_torch.configs.base import (ARCH_IDS, SHAPES, ShapeSpec,
                                       get_config, reduced_config)
 from repro_torch.launch import dryrun, hillclimb, roofline
 from repro_torch.launch import mesh as tmesh
+from repro_torch.models import lm
 from repro_torch.train import train_step as ts
 from tests.torch_goldens import (DATA, DRYRUN_CELLS, DRYRUN_D_MODEL,
-                                 DRYRUN_SKIPS, DRYRUN_TRAIN, HILLCLIMB_ARCH,
+                                 DRYRUN_PREFILL, DRYRUN_SKIPS, DRYRUN_TRAIN,
+                                 HILLCLIMB_ARCH,
                                  HILLCLIMB_VARIANTS, HYPER_FIELDS,
                                  dryrun_cell_name, path_of)
 
@@ -133,6 +135,95 @@ def test_reduced_cell_equals_jax(cells, golden, arch, spec, mp, nm, impl):
         GROUP_SIZES[mp], beside
     ratio = got["cost_analysis_raw"]["flops"] / flops
     assert FLOPS_RATIO[0] <= ratio <= FLOPS_RATIO[1], (ratio, beside)
+
+
+def _sited(cfg, shape, multi_pod=False, hyper=None):
+    """`roofline.CollectiveStats` of one call of a reduced cell's step with
+    the site of each collective, on a fake group of the mesh's size, on
+    one thread."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        with dryrun._fake_group(512 if multi_pod else 256):
+            mesh = tmesh.make_production_mesh(multi_pod=multi_pod,
+                                              device="cpu")
+            step, args = dryrun._cell_step(cfg, shape, mesh, hyper, "cpu")
+            _, stats, _, _, _ = dryrun._run_measured(step, args, "cpu")
+    finally:
+        torch.set_num_threads(threads)
+    return stats
+
+
+@pytest.mark.parametrize("cache_update", ["dus", "blend"])
+def test_decode_collectives_do_not_grow_with_the_cache(capsys, cache_update):
+    """Reduced qwen1.5-0.5b's decode on 16 x 16: its 4 kv heads are fewer
+    than the 16 "model" ranks, so its kv cache is split along its
+    sequence over "model" (JAX's ``cache_seq``), and each rank attends
+    over its own positions, the ranks' partial softmaxes combined
+    (`attention._decode_on_blocks`).  The collective bytes by kind are
+    the same at cache lengths 64 and 256, for both cache writes (the
+    cache was gathered each layer: 2,048 B more a cached position)."""
+    cfg = reduced_config(get_config("qwen1p5_0p5b"))
+    variant = "blend" if cache_update == "blend" else "baseline"
+    got = {seq: hillclimb._run(cfg, ShapeSpec("dry_decode", seq, 32,
+                                              "decode"),
+                               variant, False, show_top=False,
+                               device="cpu")["by_kind"]
+           for seq in (64, 256)}
+    assert got[64] == got[256]
+    assert got[64]["all-reduce"] > 0
+    assert not dist.is_initialized()
+
+
+def test_reduced_ssd_block_moves_no_activation_of_its_width():
+    """Reduced zamba2's prefill on 16 x 16: the Mamba2 in-projection, its
+    five-way split and the causal conv move only the weights between
+    ranks (`mamba2._proj_and_conv`: the packed columns' shards end at no
+    group's boundary, so each rank takes its groups' columns of the
+    gathered weight), once a layer each: ``in_proj``, ``conv_w`` and
+    ``conv_b`` in bf16.  The gated norm all-reduces each row's sum of
+    squares (B_l x S x 1 in f32) and gathers nothing.  Before, the product
+    was split where DTensor put it (the weight gathered to meet a pending
+    sum, the norm's input gathered)."""
+    arch = "zamba2_2p7b"
+    cfg = reduced_config(get_config(arch), d_model=DRYRUN_D_MODEL[arch])
+    stats = _sited(cfg, ShapeSpec(*DRYRUN_PREFILL))
+    mc = lm.mamba_config(cfg)
+    conv = mc.d_inner + 2 * mc.d_state
+    weights = (cfg.d_model * (conv + mc.d_inner + mc.n_heads) * 2,
+               mc.d_conv * conv * 2, conv * 2)
+    mine = [(kind, nbytes, shape, site) for (kind, _, nbytes, shape, _), site
+            in zip(stats.calls, stats.sites) if "models/mamba2.py" in site]
+    gathers = sorted(nbytes for kind, nbytes, _, _ in mine
+                     if kind == "all-gather")
+    assert gathers == sorted(weights * cfg.n_layers), mine
+    assert all("gated_rms_norm" not in site for kind, _, _, site in mine
+               if kind == "all-gather")
+    rest = [(kind, shape) for kind, _, shape, site in mine
+            if kind != "all-gather"]
+    assert rest and all(kind == "all-reduce" and shape[-1] == 1
+                        for kind, shape in rest), rest
+    assert len(rest) == cfg.n_layers
+
+
+def test_multi_pod_gradient_all_reduces_one_data_shard_a_microbatch(cells,
+                                                                    golden):
+    """The multi-pod train cell all-reduces at most one data shard of the
+    f32 parameters (729,088 x 4 B over 16 "data" ranks) a microbatch more
+    than the single-pod cell, whose ranks hold the same rows: a gradient
+    reaches its FSDP shard by a reduce-scatter over "data" and only that
+    shard is all-reduced over "pod" (`sharding.redistribute`'s backward).
+    DTensor all-reduced each whole gradient over "pod" first (2,839,628 B
+    more)."""
+    single = cells["qwen1p5_0p5b_dry_train_single"]
+    multi = cells["qwen1p5_0p5b_dry_train_pods_multi"]
+    nm = multi["analytic"]["microbatches"]
+    assert nm == single["analytic"]["microbatches"] == 2
+    shard = golden["cells"]["qwen1p5_0p5b_dry_train_pods_multi"][
+        "analytic"]["params_global"] * 4 // 16
+    extra = multi["collectives"]["by_kind"]["all-reduce"] - \
+        single["collectives"]["by_kind"]["all-reduce"]
+    assert 0 < extra <= shard * nm, (extra, shard * nm)
 
 
 @pytest.mark.parametrize("arch,shape_name,mp", DRYRUN_SKIPS)

@@ -72,9 +72,10 @@ def test_public_surface_is_a_subset_of_the_jax_package():
 # beside the TPU's VMEM, a spec's DTensor placements (JAX's
 # NamedSharding), the DTensor helpers GSPMD needs none of (placing and
 # gathering a tree, running a function on each rank's blocks, reducing a
-# pending sum), the collective count that stands for the HLO parser, the
-# LM kernel wrappers' argument checks on shapes and dtypes alone and the
-# attention kernel's launches a call
+# pending sum, a hint's placements, a weight's column groups, a
+# redistribution whose backward moves least), the collective count that
+# stands for the HLO parser, the LM kernel wrappers' argument checks on
+# shapes and dtypes alone and the attention kernel's launches a call
 EXTRA = {"repro_torch.models.lm": {"params_from_numpy", "caches_from_numpy"},
          "repro_torch.kernels.flash_attention.kernel": {"check_args",
                                                         "grid_launches"},
@@ -89,7 +90,8 @@ EXTRA = {"repro_torch.models.lm": {"params_from_numpy", "caches_from_numpy"},
          "repro_torch.tpuprobe.vmem_probe": {"NOMINAL_SMEM"},
          "repro_torch.distributed.sharding": {
              "placements", "distribute_tree", "gather_tree", "block_offset",
-             "on_blocks", "reduce_partial", "bind_mesh_rules"},
+             "on_blocks", "reduce_partial", "bind_mesh_rules",
+             "hint_placements", "column_groups", "redistribute"},
          "repro_torch.launch.roofline": {"count_collectives"},
          "repro_torch.train.train_step": {"train_state_from_numpy"}}
 

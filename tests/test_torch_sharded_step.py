@@ -48,12 +48,12 @@ from repro_torch.models import attention as tattn
 from repro_torch.train import train_step as tts
 from repro_torch.train.trainer import Trainer, TrainerConfig
 from tests import _torch_gloo
-from tests.torch_goldens import (DATA, SHARDED_CASES, SHARDED_MICRO,
-                                 SHARDED_SHAPE, SHARDED_STEPS, path_of,
-                                 sharded_inputs, sharded_rows)
+from tests.torch_goldens import (DATA, SHARDED_CASES, SHARDED_DECODE_STEPS,
+                                 SHARDED_MICRO, SHARDED_SHAPE, SHARDED_STEPS,
+                                 path_of, sharded_inputs, sharded_rows)
 
 ARCHS = tuple(sorted({arch for arch, _ in SHARDED_CASES}))
-DECODE_STEPS = 2
+DECODE_STEPS = SHARDED_DECODE_STEPS
 TRAIN = [(arch, mi, nm, sp) for arch, mi in SHARDED_CASES
          for nm, sp in SHARDED_STEPS]
 METRIC_TOL = dict(rel=1e-5, abs=1e-8)
@@ -114,22 +114,26 @@ def _jax_step(cfg, state, batch, nm, moe_impl):
 
 
 def _jax_serve(cfg, params, batch):
-    """Reference (a) of the serving steps: prefill logits and the decode
-    logits and caches after `DECODE_STEPS` tokens."""
+    """Reference (a) of the serving steps: prefill logits, the decode
+    logits and caches after `DECODE_STEPS` tokens with "dus" cache writes,
+    and the same with "blend" writes."""
     seq, b = SHARDED_SHAPE
     tokens = batch["tokens"]
     prefill = np.asarray(jax.jit(
         lambda p, t: jlm.prefill(cfg, p, {"tokens": t}, seq, jnp.float32,
                                  "ref"))(params, tokens))
-    caches = jlm.init_caches(cfg, b, seq, jnp.float32)
-    decode = jax.jit(lambda p, c, t, pos: jlm.decode_step(
-        cfg, p, c, t, pos, jnp.float32))
-    logits = []
-    for pos in range(DECODE_STEPS):
-        lg, caches = decode(params, caches, tokens[:, pos:pos + 1],
-                            jnp.int32(pos))
-        logits.append(np.asarray(lg))
-    return prefill, logits, _flat(caches)
+    decoded = []
+    for update in ("dus", "blend"):
+        caches = jlm.init_caches(cfg, b, seq, jnp.float32)
+        decode = jax.jit(lambda p, c, t, pos: jlm.decode_step(
+            cfg, p, c, t, pos, jnp.float32, cache_update=update))
+        logits = []
+        for pos in range(DECODE_STEPS):
+            lg, caches = decode(params, caches, tokens[:, pos:pos + 1],
+                                jnp.int32(pos))
+            logits.append(np.asarray(lg))
+        decoded += [logits, _flat(caches)]
+    return (prefill,) + tuple(decoded)
 
 
 @pytest.fixture(scope="module")
@@ -287,7 +291,7 @@ def test_prefill_on_four_ranks_equals_jax(runs, golden, arch):
     to the kernels' wrappers (their plain versions on the CPU), once per
     attention and once per SSD layer."""
     got, refs = _results(runs)
-    want, _, _ = refs[f"{arch}_serve"]
+    want = refs[f"{arch}_serve"][0]
     res = got[0][f"{arch}_serve"]["prefill"]
     n_attn, n_ssd = _layers(arch)
     for impl in ("ref", "kernel"):
@@ -310,16 +314,43 @@ def test_decode_steps_on_four_ranks_equal_jax(runs, arch):
     caches; the caches keep `cache_shardings`' placements on every
     rank."""
     got, refs = _results(runs)
-    _, want_logits, want_caches = refs[f"{arch}_serve"]
+    _, want_logits, want_caches, _, _ = refs[f"{arch}_serve"]
+    _check_decode(got, arch, "", want_logits, want_caches)
+
+
+def _check_decode(got, arch, key, want_logits, want_caches):
+    """Rank 0's decode logits and gathered caches of the ``key`` run
+    ("" for "dus", "_blend") against JAX's; every rank's caches placed by
+    `cache_shardings`."""
     res = got[0][f"{arch}_serve"]
-    for i, (g, w) in enumerate(zip(res["decode"], want_logits)):
+    for i, (g, w) in enumerate(zip(res["decode" + key], want_logits)):
         np.testing.assert_allclose(g, w, err_msg=f"token {i}", **TENSOR_TOL)
-    assert sorted(res["caches"]) == sorted(want_caches)
+    assert sorted(res["caches" + key]) == sorted(want_caches)
     for k, v in want_caches.items():
-        np.testing.assert_allclose(res["caches"][k], v, err_msg=k,
+        np.testing.assert_allclose(res["caches" + key][k], v, err_msg=k,
                                    **TENSOR_TOL)
     for rank in range(4):
-        assert got[rank][f"{arch}_serve"]["cache_misplaced"] == []
+        assert got[rank][f"{arch}_serve"]["cache_misplaced" + key] == []
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_blend_decode_steps_on_four_ranks_equal_jax(runs, golden, arch):
+    """The same `DECODE_STEPS` with ``cache_update="blend"`` (the one-hot
+    masked write, each rank masking its own block of positions by global
+    position): JAX's ``decode_step(..., cache_update="blend")`` without a
+    mesh (a), and the logits' sums of JAX's own ``jit_decode_step(...,
+    cache_update="blend")`` on the same (2, 2) mesh, from the golden
+    (b): absolute sums rel 1e-5, sums (of 2,048 logits of either sign)
+    within 1e-3."""
+    got, refs = _results(runs)
+    _, _, _, want_logits, want_caches = refs[f"{arch}_serve"]
+    _check_decode(got, arch, "_blend", want_logits, want_caches)
+    g = golden[f"{arch}_gshard"]["decode_blend"]
+    logits = got[0][f"{arch}_serve"]["decode_blend"]
+    assert len(logits) == len(g["logits_sums"]) == DECODE_STEPS
+    for lg, s, a in zip(logits, g["logits_sums"], g["logits_abs_sums"]):
+        assert float(np.abs(lg).sum()) == pytest.approx(a, rel=1e-5)
+        assert float(lg.sum()) == pytest.approx(s, rel=1e-5, abs=1e-3)
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -352,14 +383,18 @@ def _axis(ranks):
 # before its two tensor-parallel regions and reduce-scatters their
 # outputs, and the final norm's output is gathered before the unembedding
 # (`lm._whole_seq`, `lm._like_residual`), where DTensor's own rules moved
-# more (62 / 38 model-dim all-gathers / reduce-scatters).
+# more (62 / 38 model-dim all-gathers / reduce-scatters).  The residual
+# is reduced before the final norm (`lm._resid`): left a pending sum there,
+# the unembedding gathered its vocab-split weight to meet it (1 model-dim
+# all-gather, 6 all-reduces and 1 reduce-scatter more without sequence
+# parallelism).
 COUNT_SNAPSHOT = {
-    "nm1_sp0": ({("all-gather", "data"): 9, ("all-gather", "model"): 6,
-                 ("all-reduce", "data"): 9, ("all-reduce", "model"): 26,
+    "nm1_sp0": ({("all-gather", "data"): 9, ("all-gather", "model"): 5,
+                 ("all-reduce", "data"): 9, ("all-reduce", "model"): 20,
                  ("reduce-scatter", "data"): 9,
-                 ("reduce-scatter", "model"): 3},
-                {"all-gather": 1732736, "all-reduce": 173140,
-                 "reduce-scatter": 1368064}),
+                 ("reduce-scatter", "model"): 2},
+                {"all-gather": 1699968, "all-reduce": 123988,
+                 "reduce-scatter": 1236992}),
     "nm2_sp1": ({("all-gather", "data"): 18, ("all-gather", "model"): 22,
                  ("all-reduce", "data"): 15, ("all-reduce", "model"): 20,
                  ("reduce-scatter", "data"): 18,

@@ -90,6 +90,9 @@ SHARDED_CASES = (("qwen1p5_0p5b", "gshard"), ("qwen2_moe_a2p7b", "gshard"),
                  ("qwen2_moe_a2p7b", "sorted"), ("zamba2_2p7b", "gshard"))
 SHARDED_STEPS = ((1, False), (2, True))
 SHARDED_SHAPE = (16, 4)
+# the decode steps the sharded cases take from empty caches, token i of
+# the batch's rows at position i
+SHARDED_DECODE_STEPS = 2
 SHARDED_MICRO = 2
 
 
@@ -322,8 +325,39 @@ def _sharded_steps() -> dict:
             {"tokens": jax.device_put(data["tokens"], bshard["tokens"])}))
         case["prefill"] = {"logits_sum": float(logits.sum()),
                            "logits_abs_sum": float(np.abs(logits).sum())}
+        if moe_impl == "gshard":   # the decode dispatches gshard
+            case["decode_blend"] = _sharded_decode(cfg, mesh, state.params,
+                                                   data, "blend")
         out[f"{arch}_{moe_impl}"] = case
     return out
+
+
+def _sharded_decode(cfg, mesh, params, data, cache_update: str) -> dict:
+    """`SHARDED_DECODE_STEPS` of JAX's ``jit_decode_step`` on ``mesh``
+    from empty caches (f32): each token's logits' sum and absolute sum."""
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+    from repro.configs.base import ShapeSpec
+    from repro.models import lm
+    from repro.train import train_step as jts
+    seq, batch = SHARDED_SHAPE
+    step, _, _, (pshard, cshard, bshard) = jts.jit_decode_step(
+        cfg, mesh, ShapeSpec("sharded", seq, batch, "decode"), jnp.float32,
+        cache_update=cache_update)
+    placed = jax.device_put(params, pshard)
+    caches = jax.device_put(lm.init_caches(cfg, batch, seq, jnp.float32),
+                            cshard)
+    sums, abs_sums = [], []
+    for pos in range(SHARDED_DECODE_STEPS):
+        tokens = jax.device_put(data["tokens"][:, pos:pos + 1],
+                                bshard["tokens"])
+        logits, caches = step(placed, caches, tokens,
+                              jax.device_put(jnp.int32(pos), bshard["pos"]))
+        logits = np.asarray(logits)
+        sums.append(float(logits.sum()))
+        abs_sums.append(float(np.abs(logits).sum()))
+    return {"logits_sums": sums, "logits_abs_sums": abs_sums}
 
 
 def golden_sharded_steps() -> dict:
