@@ -182,7 +182,13 @@ Four phases, in order; any failure exits non-zero:
              qwen2.5-14b `long_500k` skipped with JAX's reason; then
              `hillclimb.run` of qwen2.5-14b `train_4k` under
              `seqpar+mb2`, its top collectives printed with the frames
-             that issued them;
+             that issued them; qwen2-moe-a2.7b `train_4k` under
+             `moegroup+mb2` (the MoE routed in groups of 512 tokens)
+             with XLA's argument bytes and a peak under `HBM_BYTES`;
+             qwen2.5-14b `decode_32k` under `blend`; both decodes
+             (`dus`, `blend`) consuming their caches, as JAX's donated
+             step does: peak at most XLA's per-device bytes, alias
+             bytes XLA's, collective bytes at most XLA's raw total;
 4. times   — times each kernel with CUDA events at the main path's shapes
              beside its plain version, its bound and the PyTorch library
              call where one exists (the engine also at the Table 1
@@ -2616,8 +2622,10 @@ def _sharded_serve(smoke, mesh, card):
     decode, _, _, _ = ts.jit_decode_step(
         cfg, mesh, ShapeSpec("chip_smoke", n, PREFILL_B, "decode"),
         torch.float32, "dus")
+    # the placed step consumes its caches (JAX's donated step): the
+    # unsharded decode keeps caches of its own
     c_sh = lm.init_caches(cfg, PREFILL_B, n, torch.float32, device=smoke.dev)
-    c_pl = c_sh
+    c_pl = lm.init_caches(cfg, PREFILL_B, n, torch.float32, device=smoke.dev)
     steps = []
     for pos in range(n):
         tok = tokens[:, pos:pos + 1]
@@ -2787,6 +2795,81 @@ def placement_checks(records: dict, golden: dict):
     return lines, faults
 
 
+# The decode's memory path (ix) holds to XLA's, under both cache writes:
+# the step consumes its caches (written in place, as JAX's donated step
+# writes them), so its peak is at most XLA's per-device bytes and its alias
+# bytes are XLA's; "blend" is the hillclimb's row (`HILLCLIMB_BLEND`)
+HILLCLIMB_RUN = ("seqpar+mb2", "qwen2.5-14b", "train_4k")
+HILLCLIMB_MOEGROUP = ("moegroup+mb2", "qwen2-moe-a2.7b", "train_4k")
+HILLCLIMB_BLEND = ("blend", "qwen2.5-14b", "decode_32k")
+
+
+def moegroup_checks(rec: dict, ungrouped: dict, regroups: int, cfg):
+    """``(line, faults)`` of the `HILLCLIMB_MOEGROUP` cell against path
+    (ix)'s gshard cell of the same arch, shape and microbatches
+    (``ungrouped``): the routing-group reshape (`models.moe._regroup`) ran
+    ``regroups`` times, at least its forward pair in each MoE layer for
+    each microbatch and at most twice that (the remat's recompute runs
+    the layer again, which may stop after the first), and the rank's
+    FLOPs are fewer than the ungrouped cell's (each group's capacity is
+    its share of the sequence's, so the dispatch and combine shrink)."""
+    nm = rec["analytic"]["microbatches"]
+    lo = 2 * cfg.n_layers * nm
+    flops = rec["cost_analysis_raw"]["flops"]
+    whole = ungrouped["cost_analysis_raw"]["flops"]
+    line = (f"{goldens().hillclimb_row_name(*HILLCLIMB_MOEGROUP)}: "
+            f"{regroups} group reshapes (from {lo} to {2 * lo}); rank "
+            f"FLOPs {flops:.6g}, under the ungrouped cell's {whole:.6g}")
+    ok = lo <= regroups <= 2 * lo and flops < whole \
+        and ungrouped["analytic"]["microbatches"] == nm
+    return line, [] if ok else [line]
+
+
+def count_calls(module, name: str):
+    """``(counter, restore)``: ``module.<name>`` replaced by a wrapper
+    that adds one to ``counter[0]`` each call; ``restore()`` puts the
+    function back."""
+    fn, counter = getattr(module, name), [0]
+
+    @functools.wraps(fn)
+    def counted(*args, **kwargs):
+        counter[0] += 1
+        return fn(*args, **kwargs)
+    setattr(module, name, counted)
+    return counter, lambda: setattr(module, name, fn)
+
+
+def decode_memory_checks(records: dict, golden: dict):
+    """``(lines, faults)`` of the decode's memory and collectives under
+    each cache write of ``records`` ({"dus": path (ix)'s `DRYRUN_DECODE`
+    record, "blend": `HILLCLIMB_BLEND`'s}) against XLA's from the
+    dry-run golden: per-device bytes (the measured peak with the
+    arguments) at most XLA's, alias bytes XLA's, collective bytes at
+    most XLA's raw total."""
+    cell = golden["full"][DRYRUN_DECODE]
+    blend = goldens().hillclimb_row_name(*HILLCLIMB_BLEND)
+    want = {"dus": (cell["memory_analysis"]["per_device_bytes"],
+                    cell["memory_analysis"]["alias_bytes"],
+                    cell["collectives"]["total_bytes_per_device"]),
+            "blend": (golden["hillclimb_full"][blend]["mem_dev"],
+                      golden["hillclimb_memory"][blend]["alias_bytes"],
+                      golden["hillclimb_full"][blend]["collective_bytes"])}
+    lines, faults = [], []
+    for update, rec in records.items():
+        ma, total = rec["memory_analysis"], \
+            rec["collectives"]["total_bytes_per_device"]
+        mem, alias, coll = want[update]
+        lines.append(f"{DRYRUN_DECODE} [{update}]: per-device "
+                     f"{ma['per_device_bytes']:,} B, at most XLA's "
+                     f"{mem:,}; alias {ma['alias_bytes']:,} B, XLA's "
+                     f"{alias:,}; collectives {total:,} B, at most XLA's "
+                     f"raw {coll:,}")
+        if ma["per_device_bytes"] > mem or ma["alias_bytes"] != alias \
+                or total > coll:
+            faults.append(lines[-1])
+    return lines, faults
+
+
 def dryrun_main_path(smoke, card):
     """Path (ix): `launch.dryrun` on the card, each cell of `DRYRUN_RUN`
     as rank 0 of a fake 256- or 512-rank group of its own, after (viii):
@@ -2803,12 +2886,18 @@ def dryrun_main_path(smoke, card):
     plain call (the counters set to 0 just before the cell, read just
     after); `long_500k` is skipped with JAX's reason; then
     `hillclimb.run(qwen2.5-14b, train_4k, seqpar+mb2)` with its top
-    collectives.  The path must start with at most 1 GiB allocated."""
+    collectives, the `moegroup+mb2` hillclimb of qwen2-moe-a2.7b
+    `train_4k` (XLA's argument bytes, a peak under `HBM_BYTES`, the group
+    reshape run in every MoE layer, `moegroup_checks`) and the
+    `blend` one of qwen2.5-14b `decode_32k`, whose memory is held with
+    the `dus` cell's (`decode_memory_checks`).  The path must start
+    with at most 1 GiB allocated."""
     torch = smoke.torch
     from repro_torch import _build
     from repro_torch.configs.base import SHAPE_BY_NAME, get_config
     from repro_torch.launch import dryrun, hillclimb
     from repro_torch.launch.mesh import HBM_BYTES
+    from repro_torch.models import moe
     from repro_torch.train.train_step import TrainHyper
     tg = goldens()
     golden = json.loads(DRYRUN_GOLDEN.read_text())
@@ -2851,7 +2940,8 @@ def dryrun_main_path(smoke, card):
               f"{default['memory_analysis']['argument_bytes']:,}); "
               f"per-device peak {ma['per_device_bytes'] / 2**30:.2f} GiB "
               f"measured (temp {ma['temp_bytes'] / 2**30:.2f}, outputs "
-              f"{ma['output_bytes'] / 2**30:.2f}) beside JAX's "
+              f"{ma['output_bytes'] / 2**30:.2f}, alias "
+              f"{ma['alias_bytes'] / 2**30:.2f}) beside JAX's "
               f"{jma['per_device_bytes'] / 2**30:.2f} GiB (temp "
               f"{jma['temp_bytes'] / 2**30:.2f}, outputs "
               f"{jma['output_bytes'] / 2**30:.2f}, alias "
@@ -2893,12 +2983,13 @@ def dryrun_main_path(smoke, card):
     if rec != want:
         raise AssertionError(f"dryrun: {rec} != JAX's {want}")
     res["skip"] = rec
+    variant, arch, shape = HILLCLIMB_RUN
     t0 = time.perf_counter()
-    hc = hillclimb.run(*tg.HILLCLIMB_FULL)
+    hc = hillclimb.run(arch, shape, variant, False)
     res["hillclimb"] = {"result": hc, "wall_s": time.perf_counter() - t0}
     _free(smoke)
-    jhc = golden["hillclimb_full"]
-    print(f"dryrun: hillclimb {tg.HILLCLIMB_FULL} in "
+    jhc = golden["hillclimb_full"][tg.hillclimb_row_name(*HILLCLIMB_RUN)]
+    print(f"dryrun: hillclimb {HILLCLIMB_RUN} in "
           f"{res['hillclimb']['wall_s']:.1f} s: mem/dev "
           f"{hc['mem_dev'] / 2**30:.2f} GiB measured (JAX "
           f"{jhc['mem_dev'] / 2**30:.2f}), collectives "
@@ -2907,6 +2998,49 @@ def dryrun_main_path(smoke, card):
     if set(hc) != set(jhc) or not hc["mem_dev"] < HBM_BYTES \
             or not hc["collective_bytes"]:
         raise AssertionError(f"dryrun: hillclimb {hc}")
+    for row in (HILLCLIMB_MOEGROUP, HILLCLIMB_BLEND):
+        variant, arch, shape = row
+        name = tg.hillclimb_row_name(*row)
+        regroups, restore = count_calls(moe, "_regroup")
+        t0 = time.perf_counter()
+        try:
+            rec, _ = hillclimb._measure(get_config(arch),
+                                        SHAPE_BY_NAME[shape], variant, False)
+        finally:
+            restore()
+        res["hillclimb_" + variant] = {"record": rec, "regroups": regroups[0],
+                                       "wall_s": time.perf_counter() - t0}
+        _free(smoke)
+        ma, jma = rec["memory_analysis"], golden["hillclimb_memory"][name]
+        print(f"dryrun: hillclimb {row} in "
+              f"{res['hillclimb_' + variant]['wall_s']:.1f} s: "
+              f"{rec['status']}; argument bytes {ma['argument_bytes']:,} "
+              f"(JAX {jma['argument_bytes']:,}); per-device peak "
+              f"{ma['per_device_bytes'] / 2**30:.2f} GiB measured (JAX "
+              f"{golden['hillclimb_full'][name]['mem_dev'] / 2**30:.2f}), "
+              f"alias {ma['alias_bytes']:,} (JAX {jma['alias_bytes']:,}); "
+              f"collectives {rec['collectives']['by_kind']} on {card}")
+        if rec["status"] != "ok" \
+                or ma["argument_bytes"] != jma["argument_bytes"] \
+                or not ma["per_device_bytes"] < HBM_BYTES \
+                or ma["temp_bytes"] < 0:
+            raise AssertionError(f"dryrun: hillclimb {row}: {ma} against "
+                                 f"JAX's {jma}")
+    variant, arch, shape = HILLCLIMB_MOEGROUP
+    line, faults = moegroup_checks(
+        res["hillclimb_" + variant]["record"],
+        res["cells"][tg.dryrun_cell_name(arch, shape, False, 2)]["record"],
+        res["hillclimb_" + variant]["regroups"], get_config(arch))
+    print(f"dryrun: moegroup: {line} on {card}")
+    if faults:
+        raise AssertionError(f"dryrun: the MoE group reshape: {faults}")
+    lines, faults = decode_memory_checks(
+        {"dus": res["cells"][DRYRUN_DECODE]["record"],
+         "blend": res["hillclimb_blend"]["record"]}, golden)
+    for line in lines:
+        print(f"dryrun: placement: {line} on {card}")
+    if faults:
+        raise AssertionError(f"dryrun: decode memory past XLA's: {faults}")
     res["left_allocated_bytes"] = torch.cuda.memory_allocated() - start
     res["s"] = time.perf_counter() - t_phase
     print(f"dryrun: path (ix) {res['s']:.1f} s, "

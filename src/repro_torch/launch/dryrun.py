@@ -148,19 +148,19 @@ def _blocks(tree, shardings, mesh, gen, high=None):
     return tree_map(one, tree, shardings)
 
 
-def _local_bytes(tree) -> int:
-    """The bytes this rank holds of every tensor leaf of ``tree`` (a
-    plain tuple of trees too: a step's arguments or outputs)."""
+def _local_blocks(tree):
+    """This rank's blocks of every tensor leaf of ``tree`` (a plain tuple
+    of trees too: a step's arguments or outputs)."""
     from torch.distributed.tensor import DTensor
     if isinstance(tree, tuple) and not hasattr(tree, "_fields"):
-        return sum(_local_bytes(t) for t in tree)
-    n = 0
-    for x in tree_leaves(tree):
-        if isinstance(x, DTensor):
-            x = x.to_local()
-        if isinstance(x, torch.Tensor):
-            n += x.numel() * x.element_size()
-    return n
+        return [b for t in tree for b in _local_blocks(t)]
+    return [x.to_local() if isinstance(x, DTensor) else x
+            for x in tree_leaves(tree) if isinstance(x, torch.Tensor)]
+
+
+def _local_bytes(tree) -> int:
+    """The bytes this rank holds of every tensor leaf of ``tree``."""
+    return sum(x.numel() * x.element_size() for x in _local_blocks(tree))
 
 
 def _flop_counter():
@@ -262,13 +262,23 @@ def _counts(counter, before) -> Dict[str, int]:
 
 def _state_bytes(shape, out) -> int:
     """The local bytes of a step's state part, what JAX donates: a train
-    step's new state, a decode step's caches; 0 for a prefill (the port
-    donates nothing)."""
+    step's new state, a decode step's caches; 0 for a prefill."""
     if shape.kind == "train":
         return _local_bytes(out[0])
     if shape.kind == "decode":
         return _local_bytes(out[1])
     return 0
+
+
+def _alias_bytes(args, out) -> int:
+    """The local bytes of the outputs written into an argument's storage,
+    XLA's ``alias_size_in_bytes``: a decode step's caches, which its step
+    consumes (`train_step.jit_decode_step`); 0 for a train step (the
+    state is not donated: the port's AdamW returns a new state) and for
+    a prefill."""
+    given = {x.data_ptr() for x in _local_blocks(args) if x.numel()}
+    return sum(x.numel() * x.element_size() for x in _local_blocks(out)
+               if x.numel() and x.data_ptr() in given)
 
 
 def compile_cell(cfg: ArchConfig, shape: ShapeSpec, multi_pod: bool,
@@ -284,14 +294,18 @@ def compile_cell(cfg: ArchConfig, shape: ShapeSpec, multi_pod: bool,
         call ran (`_build`'s counters);
       * ``memory_analysis``: ``argument_bytes`` the local bytes of every
         argument, ``output_bytes`` those of the outputs (``state_bytes``
-        of them the new state, or a decode's caches), ``alias_bytes`` 0
-        (the port donates nothing), ``temp_bytes`` on the card the peak
+        of them the new state, or a decode's caches), ``alias_bytes``
+        those of the outputs written into an argument's storage
+        (`_alias_bytes`: a decode's caches, which its step consumes as
+        JAX's donated step does; 0 for a train cell, whose state is not
+        donated, and for a prefill), ``temp_bytes`` on the card the peak
         of `torch.cuda.max_memory_allocated` over the first call less
-        what was allocated before it and less the outputs, on the CPU -1
-        (as JAX writes -1 for a cost it lacks); ``per_device_bytes`` the
-        sum less the alias (on the card the measured peak with the
-        arguments, on the CPU arguments and outputs only); ``fits_hbm``
-        against the card's `HBM_BYTES`;
+        what was allocated before it and less the outputs not aliased,
+        on the CPU -1 (as JAX writes -1 for a cost it lacks);
+        ``per_device_bytes`` arguments, temporaries and outputs less the
+        alias, as the JAX record sums them (on the card the measured
+        peak with the arguments, on the CPU arguments and outputs less
+        the alias); ``fits_hbm`` against the card's `HBM_BYTES`;
       * ``cost_analysis_raw.flops``: `_flop_counter` over the same
         call, this rank's FLOPs (train cells' remat recompute included;
         one call, not two: a train step of full qwen2.5-14b takes minutes
@@ -304,6 +318,19 @@ def compile_cell(cfg: ArchConfig, shape: ShapeSpec, multi_pod: bool,
         `roofline.roofline_terms` with the counted bytes, as JAX.
 
     Runs inside a fake group of the mesh's size (`_fake_group`)."""
+    return _measure_cell(cfg, shape, multi_pod, hyper, device)[0]
+
+
+def _measure_cell(cfg: ArchConfig, shape: ShapeSpec, multi_pod: bool,
+                  hyper: Optional[ts.TrainHyper], device: str,
+                  cache_update: str = "dus",
+                  replicate_params_over_data: bool = False):
+    """`compile_cell`'s ``(record, stats)``, ``stats`` the call's
+    `roofline.CollectiveStats` with each collective's site; a decode step
+    writes its caches by ``cache_update``, and a serving step's
+    parameters are replicated over "data" with
+    ``replicate_params_over_data``, as `jit_decode_step` and
+    `jit_prefill` take them."""
     n_chips = 512 if multi_pod else 256
     if shape.kind == "train":
         hyper = hyper or ts.TrainHyper(
@@ -312,7 +339,8 @@ def compile_cell(cfg: ArchConfig, shape: ShapeSpec, multi_pod: bool,
     with _fake_group(n_chips):
         t0 = time.time()
         mesh = make_production_mesh(multi_pod=multi_pod, device=device)
-        step, args = _cell_step(cfg, shape, mesh, hyper, device)
+        step, args = _cell_step(cfg, shape, mesh, hyper, device,
+                                cache_update, replicate_params_over_data)
         t_lower = time.time() - t0
         launches, plain = dict(_build.LAUNCHES), dict(_build.PLAIN_CALLS)
         out, coll, flops, t_compile, peak = _run_measured(step, args,
@@ -322,9 +350,10 @@ def compile_cell(cfg: ArchConfig, shape: ShapeSpec, multi_pod: bool,
         arg_bytes = _arg_bytes(cfg, shape, args)
         out_bytes = _local_bytes(out)
         state_bytes = _state_bytes(shape, out)
+        alias = _alias_bytes(args, out)
         del out, step, args
 
-    temp = peak - out_bytes if peak is not None else -1
+    temp = peak - (out_bytes - alias) if peak is not None else -1
     nm = hyper.microbatches if shape.kind == "train" else 1
     ana = rl.analytic_costs(cfg, shape, n_chips, microbatches=nm,
                             remat=(hyper.remat if shape.kind == "train"
@@ -333,7 +362,7 @@ def compile_cell(cfg: ArchConfig, shape: ShapeSpec, multi_pod: bool,
     terms = rl.roofline_terms(ana.flops_per_device,
                               ana.hbm_bytes_per_device, coll_dev,
                               model_flops_dev=ana.model_flops_global / n_chips)
-    mem_dev = arg_bytes + max(temp, 0) + out_bytes
+    mem_dev = arg_bytes + max(temp, 0) + out_bytes - alias
     mf_dev = ana.model_flops_global / n_chips
     by_site: Dict[str, int] = {}
     for (kind, _, nbytes, _, _), site in zip(coll.calls, coll.sites):
@@ -351,7 +380,7 @@ def compile_cell(cfg: ArchConfig, shape: ShapeSpec, multi_pod: bool,
             "output_bytes": int(out_bytes),
             "state_bytes": int(state_bytes),
             "temp_bytes": int(temp),
-            "alias_bytes": 0,
+            "alias_bytes": int(alias),
             "per_device_bytes": int(mem_dev),
             "fits_hbm": bool(mem_dev < HBM_BYTES),
         },
@@ -379,7 +408,7 @@ def compile_cell(cfg: ArchConfig, shape: ShapeSpec, multi_pod: bool,
             "microbatches": nm,
         },
         "roofline": terms,
-    }
+    }, coll
 
 
 def run_cell(arch: str, shape_name: str, multi_pod: bool,

@@ -21,10 +21,9 @@ from collections import defaultdict
 
 from repro_torch.configs.base import SHAPE_BY_NAME, ShapeSpec, get_config
 from repro_torch.launch import roofline as rl
-from repro_torch.launch.dryrun import (_arg_bytes, _cell_step, _fake_group,
-                                       _local_bytes, _run_measured,
-                                       default_microbatches)
-from repro_torch.launch.mesh import make_production_mesh
+from repro_torch.launch.dryrun import _measure_cell, default_microbatches
+# as JAX's module: its names are the port's
+from repro_torch.launch.mesh import make_production_mesh  # noqa: F401
 from repro_torch.train import train_step as ts
 
 __all__ = ["VARIANTS", "hyper_for", "top_collectives", "run", "main"]
@@ -74,10 +73,11 @@ def top_collectives(stats: rl.CollectiveStats, k: int = 12):
     return out[:k]
 
 
-def _run(cfg, shape: ShapeSpec, variant: str, multi_pod: bool,
-         show_top: bool = True, device: str = "cuda"):
-    """`run` on a config and shape given whole (a reduced one, in the
-    CPU tests)."""
+def _variant_config(cfg, variant: str):
+    """``cfg`` as ``variant`` changes it (both packages read the names by
+    substring): ``kvrep`` replicates the kv heads over "model"
+    (``force_kv_replicate``), ``moegroup`` routes the MoE in groups of
+    512 tokens, ``cf1`` sets the MoE capacity factor to 1.0."""
     if "kvrep" in variant:
         cfg = dataclasses.replace(cfg, force_kv_replicate=True)
     if "moegroup" in variant:
@@ -86,33 +86,44 @@ def _run(cfg, shape: ShapeSpec, variant: str, multi_pod: bool,
     if "cf1" in variant:
         cfg = dataclasses.replace(
             cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=1.0))
-    n_chips = 512 if multi_pod else 256
+    return cfg
+
+
+def _measure(cfg, shape: ShapeSpec, variant: str, multi_pod: bool,
+             device: str = "cuda"):
+    """``(record, stats)`` of the variant's cell: the dry run's record
+    (`dryrun.compile_cell`) under the variant's config, hyper, cache
+    write (``blend``) and parameter placement (``replparams``: replicated
+    over "data"), and its `roofline.CollectiveStats` with sites."""
+    cfg = _variant_config(cfg, variant)
     hyper = hyper_for(variant, cfg, shape, multi_pod)
+    return _measure_cell(
+        cfg, shape, multi_pod, hyper, device,
+        cache_update="blend" if "blend" in variant else "dus",
+        replicate_params_over_data="replparams" in variant)
+
+
+def _result(variant: str, record, stats):
+    """JAX's record of a run from the dry run's ``record`` and ``stats``:
+    ``mem_dev`` the dry run's per-device bytes (arguments, temporaries
+    and outputs less the alias; on the CPU the temporaries are not
+    measured)."""
+    return {"variant": variant, "terms": record["roofline"],
+            "collective_bytes": stats.total_bytes,
+            "tpu_corrected_bytes": stats.tpu_corrected_bytes,
+            "mem_dev": int(record["memory_analysis"]["per_device_bytes"]),
+            "by_kind": dict(stats.by_kind)}
+
+
+def _run(cfg, shape: ShapeSpec, variant: str, multi_pod: bool,
+         show_top: bool = True, device: str = "cuda"):
+    """`run` on a config and shape given whole (a reduced one, in the
+    CPU tests)."""
     t0 = time.time()
-    with _fake_group(n_chips):
-        mesh = make_production_mesh(multi_pod=multi_pod, device=device)
-        step, args = _cell_step(
-            cfg, shape, mesh, hyper, device,
-            cache_update="blend" if "blend" in variant else "dus",
-            replicate_params_over_data="replparams" in variant)
-        out, coll, _, _, peak = _run_measured(step, args, device)
-        arg_bytes = _arg_bytes(cfg, shape, args)
-        out_bytes = _local_bytes(out)
-        del out, step, args
-    # the dry run's per-device bytes: on the card the measured peak with
-    # the arguments, on the CPU arguments and outputs
-    mem = arg_bytes + (peak if peak is not None else out_bytes)
-    nm = hyper.microbatches if shape.kind == "train" else 1
-    ana = rl.analytic_costs(cfg, shape, n_chips, microbatches=nm,
-                            remat=hyper.remat if shape.kind == "train"
-                            else "none")
-    terms = rl.roofline_terms(ana.flops_per_device,
-                              ana.hbm_bytes_per_device,
-                              coll.tpu_corrected_bytes,
-                              model_flops_dev=ana.model_flops_global /
-                              n_chips)
-    print(f"== {cfg.name} x {shape.name} x "
-          f"{'2x16x16' if multi_pod else '16x16'} [{variant}] "
+    rec, coll = _measure(cfg, shape, variant, multi_pod, device)
+    res = _result(variant, rec, coll)
+    mem, terms = res["mem_dev"], res["terms"]
+    print(f"== {rec['arch']} x {shape.name} x {rec['mesh']} [{variant}] "
           f"(run {time.time()-t0:.0f}s on {device}) ==")
     print(f" terms(ms): compute={terms['compute_s']*1e3:.1f} "
           f"memory={terms['memory_s']*1e3:.1f} "
@@ -125,10 +136,7 @@ def _run(cfg, shape: ShapeSpec, variant: str, multi_pod: bool,
     if show_top:
         for kind, shp, site, b in top_collectives(coll):
             print(f"   {b/2**30:6.3f} GiB  {kind:18s} {shp:26s} {site}")
-    return {"variant": variant, "terms": terms,
-            "collective_bytes": coll.total_bytes,
-            "tpu_corrected_bytes": coll.tpu_corrected_bytes,
-            "mem_dev": int(mem), "by_kind": dict(coll.by_kind)}
+    return res
 
 
 def run(arch: str, shape_name: str, variant: str, multi_pod: bool,

@@ -247,23 +247,30 @@ def init_kv_cache(batch: int, max_len: int, cfg: AttnConfig,
             "v": torch.zeros(shape, dtype=dtype, device=dev)}
 
 
+def _no_grad_write(new: torch.Tensor) -> None:
+    """Raises ``RuntimeError`` where autograd records ``new``, the value a
+    decode writes into a cache in place: a saved tensor would meet the
+    write."""
+    if new.requires_grad:
+        raise RuntimeError("decode writes its caches in place and is not "
+                           "differentiable: run it under torch.no_grad()")
+
+
 def _write_at(cache: torch.Tensor, new: torch.Tensor, pos: int):
-    """A copy of ``cache`` (B, Smax, Hkv, D) holding ``new`` (B, 1, Hkv, D)
-    at sequence position ``pos``.  On a DTensor each rank writes into its
-    own block of the copy, the one whose sequence range holds ``pos``:
-    DTensor's ``aten.copy_`` into a slice of a cache sharded along its
-    sequence writes the slice of every rank's block (wrong values, no
-    error), so the write is placed explicitly (`_on_cache_block`)."""
+    """``cache`` (B, Smax, Hkv, D) with ``new`` (B, 1, Hkv, D) written at
+    sequence position ``pos`` in place; returns ``cache``.  On a DTensor
+    each rank writes into its own block, the one whose sequence range
+    holds ``pos``: DTensor's ``aten.copy_`` into a slice of a cache
+    sharded along its sequence writes the slice of every rank's block
+    (wrong values, no error), so the write is placed explicitly
+    (`_on_cache_block`)."""
     if not isinstance(cache, DTensor):
-        out = cache.clone()
-        out[:, pos:pos + 1] = new.to(out.dtype)
-        return out
+        cache[:, pos:pos + 1] = new.to(cache.dtype)
+        return cache
 
     def write(block, nl, off):
-        out = block.clone()
-        if 0 <= pos - off < out.shape[1]:
-            out[:, pos - off:pos - off + 1] = nl.to(out.dtype)
-        return out
+        if 0 <= pos - off < block.shape[1]:
+            block[:, pos - off:pos - off + 1] = nl.to(block.dtype)
     return _on_cache_block(write, cache, new)
 
 
@@ -271,35 +278,30 @@ def _blend_at(cache: torch.Tensor, new: torch.Tensor, pos: int):
     """``cache`` (B, Smax, Hkv, D) with ``new`` (B, 1, Hkv, D) selected at
     sequence position ``pos`` by a one-hot mask over the sequence, a
     rewrite of the whole cache (the JAX package's collective-free write
-    for sequence-sharded caches).  On a DTensor each rank masks its own
-    block by global position (`_on_cache_block`), so nothing of the
-    cache's length moves between ranks."""
-    if not isinstance(cache, DTensor):
-        sel = (torch.arange(cache.shape[1], device=cache.device)
-               == pos)[None, :, None, None]
-        return torch.where(sel, new.to(cache.dtype), cache)
-
+    for sequence-sharded caches), in place (``torch.where(..., out=)``);
+    returns ``cache``.  On a DTensor each rank masks its own block by
+    global position (`_on_cache_block`), so nothing of the cache's
+    length moves between ranks."""
     def blend(block, nl, off):
         sel = (off + torch.arange(block.shape[1], device=block.device)
                == pos)[None, :, None, None]
-        return torch.where(sel, nl.to(block.dtype), block)
+        torch.where(sel, nl.to(block.dtype), block, out=block)
+    if not isinstance(cache, DTensor):
+        blend(cache, new, 0)
+        return cache
     return _on_cache_block(blend, cache, new)
 
 
 def _on_cache_block(fn, cache, new):
-    """``fn(block, new_block, off)`` on this rank's block of DTensor
-    ``cache``, whose first position is global position ``off``, with
-    ``new`` placed like the cache but whole along the sequence; the
-    result as a DTensor of the cache's global shape and placements
-    (`local_map` would take the global shape to be the block times the
-    ways: wrong for kv heads split unevenly, qwen2.5-14b's 8 over 16
-    "model" ranks)."""
+    """``fn(block, new_block, off)`` writing into this rank's block of
+    DTensor ``cache`` in place, the block's first position global
+    position ``off``, with ``new`` placed like the cache but whole along
+    the sequence; returns ``cache``, its block's storage written."""
     mesh, cpl = cache.device_mesh, list(cache.placements)
     npl = [Replicate() if p == Shard(1) else p for p in cpl]
     off = shd.block_offset(cpl, mesh, 1, cache.shape[1])
-    out = fn(cache.to_local(), new.redistribute(mesh, npl).to_local(), off)
-    return DTensor.from_local(out, mesh, cpl, run_check=False,
-                              shape=cache.shape, stride=cache.stride())
+    fn(cache.to_local(), new.redistribute(mesh, npl).to_local(), off)
+    return cache
 
 
 def _grouped_decode(q, k, v, n_kv: int, pos: int):
@@ -385,28 +387,34 @@ def _decode_on_blocks(q, k, v, cfg: AttnConfig, pos: int):
 
 def attention_decode(params, cfg: AttnConfig, x: torch.Tensor, cache,
                      pos: int, compute_dtype=torch.bfloat16,
-                     cache_update: str = "dus"):
+                     cache_update: str = "dus", donate: bool = False):
     """One-token decode: x (B,1,d); cache k/v (B,Smax,Hkv,D); pos int.
-    Returns (out, new cache); the given cache is not modified.
+    Returns (out, new cache).
 
-    cache_update: ``"dus"`` writes the new k/v at ``pos`` into a copy of
-    the cache; ``"blend"`` selects them with a one-hot mask over the
-    sequence axis (the JAX package's collective-free variant for
-    sequence-sharded caches).  Both give the same caches.  The kv heads
-    are never expanded: queries are grouped per kv head.
+    cache_update: ``"dus"`` writes the new k/v at ``pos``; ``"blend"``
+    selects them with a one-hot mask over the whole sequence axis (the
+    JAX package's collective-free variant for sequence-sharded caches).
+    Both give the same caches and write in place.  ``donate`` False (the
+    default): k and v are each copied once and written into the copies,
+    so the given cache is not modified.  ``donate`` True: they are
+    written into the given cache (on a DTensor, into each rank's block),
+    which is returned, as a JAX argument donated to the step.  A write in
+    place is not differentiable here: where autograd records the new
+    k/v, it raises ``RuntimeError`` (decode under ``torch.no_grad()``).
+    The kv heads are never expanded: queries are grouped per kv head.
     """
+    if cache_update not in ("dus", "blend"):
+        raise ValueError(f"cache_update {cache_update!r}: expected 'dus' "
+                         f"or 'blend'")
+    if not donate:
+        cache = {"k": cache["k"].clone(), "v": cache["v"].clone()}
     B = x.shape[0]
     positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
     q, k_new, v_new = qkv_proj(params, cfg, x, positions, compute_dtype)
-    if cache_update == "blend":
-        k_cache = _blend_at(cache["k"], k_new, pos)
-        v_cache = _blend_at(cache["v"], v_new, pos)
-    elif cache_update == "dus":
-        k_cache = _write_at(cache["k"], k_new, pos)
-        v_cache = _write_at(cache["v"], v_new, pos)
-    else:
-        raise ValueError(f"cache_update {cache_update!r}: expected 'dus' "
-                         f"or 'blend'")
+    _no_grad_write(k_new)
+    write = _blend_at if cache_update == "blend" else _write_at
+    k_cache = write(cache["k"], k_new, pos)
+    v_cache = write(cache["v"], v_new, pos)
 
     if isinstance(q, DTensor):
         out = _decode_on_blocks(q, k_cache, v_cache, cfg, pos)

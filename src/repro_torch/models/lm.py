@@ -100,12 +100,6 @@ def mamba_config(cfg: ArchConfig) -> MambaConfig:
 
 # -- pytree helpers -------------------------------------------------------------
 
-def _stack(trees):
-    if isinstance(trees[0], dict):
-        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
-    return torch.stack(trees)
-
-
 def _stack_init(n: int, make):
     """``n`` trees from ``make()``, in order, stacked along a new leading
     axis: each is copied into its slot and dropped, so the memory used is
@@ -457,73 +451,88 @@ def init_caches(cfg: ArchConfig, batch: int, max_len: int,
 
 def _decode_block(cfg, p, h, cache, pos, compute_dtype, cache_update):
     """Attention + MLP (or MoE, gshard) on one token: a layer or a shared
-    block."""
+    block, its k/v written into ``cache`` in place."""
     h = _resid(h)
     hh = L.rms_norm(h, p["norm_attn"])
-    out, new_cache = attn.attention_decode(p["attn"], attn_config(cfg), hh,
-                                           cache, pos, compute_dtype,
-                                           cache_update)
+    out, _ = attn.attention_decode(p["attn"], attn_config(cfg), hh, cache,
+                                   pos, compute_dtype, cache_update,
+                                   donate=True)
     h = _resid(h + out)
     hh = L.rms_norm(h, p["norm_mlp"])
     if "moe" in p:
         o, _ = moe_mod.moe_block(p["moe"], moe_config(cfg), hh,
                                  compute_dtype)
-        return h + o, new_cache
-    return h + L.mlp_swiglu(p["mlp"], hh, compute_dtype), new_cache
+        return h + o
+    return h + L.mlp_swiglu(p["mlp"], hh, compute_dtype)
+
+
+def _put(dst, src) -> None:
+    """``src`` written into ``dst`` in place; on DTensors into this
+    rank's block of ``dst``, ``src`` placed like it first."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(dst, DTensor):
+        if list(src.placements) != list(dst.placements):
+            src = src.redistribute(dst.device_mesh, dst.placements)
+        dst, src = dst.to_local(), src.to_local()
+    dst.copy_(src)
 
 
 def _decode_mamba(cfg, p, h, cache, compute_dtype):
+    """A Mamba2 layer on one token, its conv and SSM states written into
+    ``cache`` in place."""
     h = _resid(h)
     hn = L.rms_norm(h, p["norm_attn"])
-    out, new_cache = m2.mamba_decode_step(p["ssm"], mamba_config(cfg), hn,
-                                          cache, compute_dtype)
-    return h + out, new_cache
+    out, new = m2.mamba_decode_step(p["ssm"], mamba_config(cfg), hn, cache,
+                                    compute_dtype)
+    attn._no_grad_write(new["ssm"])
+    _put(cache["conv"], new["conv"])
+    _put(cache["ssm"], new["ssm"])
+    return h + out
 
 
 def decode_step(cfg: ArchConfig, params, caches, tokens: torch.Tensor,
                 pos: int, compute_dtype=torch.bfloat16,
-                cache_update: str = "dus"):
+                cache_update: str = "dus", donate: bool = False):
     """One-token decode.  tokens: (B,1); pos: int position.  Returns
-    (logits (B,1,V) f32, new caches); the given caches are not modified.
+    (logits (B,1,V) f32, new caches).  ``donate`` False (the default,
+    JAX's un-donated ``jax.jit``): the given caches are not modified;
+    each cache leaf is copied once, and each layer writes its slice of
+    the copy in place.  ``donate`` True (`train_step.jit_decode_step`'s
+    step, JAX's ``donate_argnums``): each layer writes its slice of the
+    given caches in place (on DTensors, each rank its own block), and
+    the given caches are returned.  Either way one cache-sized tensor
+    at most is allocated a leaf, as JAX's scan carry holds one.  The
+    writes are not differentiable (`attention.attention_decode`).
     Decode runs no kernel (the JAX function's ``impl`` is unused there
     too).  vlm decodes text only; the encoder raises ``ValueError``."""
     _check_family(cfg)
     _refuse_decode(cfg)
+    if not donate:
+        caches = _map(torch.clone, caches)
     x = L.embed_tokens(params["embed"], tokens, compute_dtype)
     layers = params["layers"]
-    new = dict(caches)
     if cfg.family in _ATTN_FAMILIES:
-        kv = []
         for i in range(cfg.n_layers):
-            x, c = _decode_block(cfg, _index(layers, i), x,
-                                 _index(caches["attn"], i), pos,
-                                 compute_dtype, cache_update)
-            kv.append(c)
-        new["attn"] = _stack(kv)
+            x = _decode_block(cfg, _index(layers, i), x,
+                              _index(caches["attn"], i), pos, compute_dtype,
+                              cache_update)
     else:
-        ssm = []
-        shared = []
         every = cfg.hybrid_every if cfg.family == "hybrid" else cfg.n_layers
         for gi in range(cfg.n_layers // every):
             if cfg.family == "hybrid":
                 sp = _index(params["shared_blocks"],
                             gi % cfg.n_shared_blocks)
-                x, c = _decode_block(cfg, sp, x,
-                                     _index(caches["shared_attn"], gi), pos,
-                                     compute_dtype, cache_update)
-                shared.append(c)
+                x = _decode_block(cfg, sp, x,
+                                  _index(caches["shared_attn"], gi), pos,
+                                  compute_dtype, cache_update)
             for j in range(every):
                 i = gi * every + j
-                x, c = _decode_mamba(cfg, _index(layers, i), x,
-                                     _index(caches["ssm"], i), compute_dtype)
-                ssm.append(c)
-        new["ssm"] = _stack(ssm)
-        if shared:
-            new["shared_attn"] = _stack(shared)
+                x = _decode_mamba(cfg, _index(layers, i), x,
+                                  _index(caches["ssm"], i), compute_dtype)
     x = L.rms_norm(_resid(x), params["final_norm"])
     logits = mask_vocab_pad(
         cfg, L.unembed_logits(params["head"], x, compute_dtype))
-    return logits, new
+    return logits, caches
 
 
 def prefill(cfg: ArchConfig, params, batch, compute_dtype=torch.bfloat16,

@@ -210,11 +210,12 @@ def moe_block(params, cfg: MoeConfig, x: torch.Tensor,
     if impl not in _IMPLS:
         raise ValueError(f"moe_impl {impl!r}: expected one of {_IMPLS}")
     B0, S0, D = x.shape
-    if cfg.group_size and cfg.group_size < S0:
+    grouped = bool(cfg.group_size) and cfg.group_size < S0
+    if grouped:
         if S0 % cfg.group_size:
             raise ValueError(f"moe_block: sequence {S0} is not a multiple "
                              f"of group_size {cfg.group_size}")
-        x = x.reshape(B0 * (S0 // cfg.group_size), cfg.group_size, D)
+        x = _regroup(x, cfg.group_size)
     B, S, D = x.shape
     E, K = cfg.n_experts, cfg.top_k
     C = deterministic_capacity or max(
@@ -267,4 +268,29 @@ def moe_block(params, cfg: MoeConfig, x: torch.Tensor,
     # exactly one (expert) entry per (b,s,k) routing slot is live
     frac_dropped = 1.0 - within_cap.float().sum() / (B * S * K)
     aux = {"lb_loss": lb, "z_loss": z, "frac_dropped": frac_dropped}
-    return out.reshape(B0, S0, D), aux
+    return (_regroup(out, S0) if grouped else out.reshape(B0, S0, D)), aux
+
+
+def _regroup(x, rows: int):
+    """``x`` (B, S, D) as (B * S // rows, rows, D): the routing groups'
+    reshape (``rows`` the group size) and its inverse (``rows`` the
+    sequence).  On a DTensor each rank reshapes its own block
+    (`shd.on_blocks`), its sequence whole and its pending sums reduced
+    first (its batch whole too where the batch does not split evenly):
+    rank r's groups are the groups of its own rows, and a pending sum's
+    gradient would come back to each rank whole, counted once a rank.
+    DTensor's view rule mis-sizes the block of a batch-split tensor whose
+    sequence folds into the batch (``shape '[0, 16, 128]' is
+    invalid``)."""
+    B, S, D = x.shape
+    if not isinstance(x, DTensor):
+        return x.reshape(B * S // rows, rows, D)
+    pl = [Replicate() if p.is_shard(1) or p.is_partial() else p
+          for p in x.placements]
+    ways = 1
+    for m, p in enumerate(pl):
+        if p.is_shard(0):
+            ways *= x.device_mesh.size(m)
+    if B % ways or (B * S // rows) % ways:
+        pl = [Replicate() if p.is_shard(0) else p for p in pl]
+    return shd.on_blocks(lambda b: b.reshape(-1, rows, D), (pl,), pl, x)

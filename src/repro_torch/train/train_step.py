@@ -461,7 +461,14 @@ def jit_decode_step(cfg: ArchConfig, mesh, shape: ShapeSpec,
     on ``mesh``: returns ``(step, aparams, acaches, (pshard, cshard,
     bshard))`` as the JAX function does.  ``step(params, caches, tokens,
     pos)`` places its inputs as `jit_train_step`'s step does and returns
-    (logits as a DTensor, new caches with ``cshard``'s placements).
+    (logits as a DTensor, new caches with ``cshard``'s placements).  The
+    step consumes its caches, as JAX's ``donate_argnums=(1,)`` does:
+    under ``torch.no_grad()`` each rank writes the new k/v (and SSM
+    states) into its own block of the placed caches and returns them
+    (`lm.decode_step` with ``donate``).  DTensors already placed by
+    ``cshard`` are written themselves, and plain tensors may share their
+    storage with their placed blocks: pass a copy to keep the old
+    caches.
     ``replicate_params_over_data``: serving holds no optimizer state, so
     parameters need not be FSDP-sharded over "data"; replicated there,
     no decoded token gathers them.  Nothing is compiled."""
@@ -481,10 +488,11 @@ def jit_decode_step(cfg: ArchConfig, mesh, shape: ShapeSpec,
         params = _fsdp_gathered(_place(params, pshard, mesh), mesh, rules)
         caches = _place(caches, cshard, mesh)
         tokens = _place(tokens, bshard["tokens"], mesh)
-        with shd.use_mesh_rules(mesh, rules):
+        with torch.no_grad(), shd.use_mesh_rules(mesh, rules):
             logits, new = lm.decode_step(cfg, params, caches, tokens,
                                          int(pos), dtype,
-                                         cache_update=cache_update)
+                                         cache_update=cache_update,
+                                         donate=True)
         return logits, _place(new, cshard, mesh)
 
     return step, aparams, acaches, (pshard, cshard, bshard)

@@ -19,6 +19,7 @@ from repro_torch.models import lm
 from repro_torch.optim import adamw
 from repro_torch._tree import tree_flatten_with_path
 from repro_torch.train import train_step as ts
+from tests.torch_goldens import sharded_variant_config
 
 
 def restore_worker(rank, world, store, ckpt_root, step, jobs, out):
@@ -75,16 +76,25 @@ def _train_state(job):
 
 def _hyper(job):
     return ts.TrainHyper(microbatches=job["nm"],
-                         sequence_parallel=job["sp"], remat="none",
+                         sequence_parallel=job["sp"],
+                         remat=job.get("remat", "none"),
                          compute_dtype=torch.float32,
                          moe_impl=job["moe_impl"])
+
+
+def _config(job):
+    """The job's reduced config, as its ``variant`` (a `SHARDED_VARIANTS`
+    case, or none) changes it."""
+    return sharded_variant_config(
+        tbase.reduced_config(tbase.get_config(job["arch"])),
+        job.get("variant", ""))
 
 
 def _train_job(job, mesh):
     """One `jit_train_step`; with ``job["count"]`` under
     `roofline.count_collectives` (the step places its full inputs without
     communication, so only its own collectives count)."""
-    cfg = tbase.reduced_config(tbase.get_config(job["arch"]))
+    cfg = _config(job)
     hyper = _hyper(job)
     seq, batch = job["shape"]
     step, _, st_shard, _ = ts.jit_train_step(
@@ -105,19 +115,23 @@ def _train_job(job, mesh):
 
 
 def _serve_job(job, mesh):
-    """`jit_prefill` with ``impl`` "ref" and "kernel" (on CPU blocks the
-    kernel's wrapper runs its plain version, and counts it), then
-    ``len(job["decode"])`` `jit_decode_step` calls from empty caches, with
-    each cache write ("dus", then "blend": the ``_blend`` keys)."""
-    cfg = tbase.reduced_config(tbase.get_config(job["arch"]))
+    """`jit_prefill` with each ``impl`` of ``job["impls"]`` (default "ref"
+    and "kernel"; on CPU blocks the kernel's wrapper runs its plain
+    version, and counts it), then ``len(job["decode"])`` `jit_decode_step`
+    calls from empty caches, with each cache write of ``job["updates"]``
+    (default "dus", then "blend": the ``_blend`` keys); with
+    ``job["replparams"]`` the parameters replicated over "data"."""
+    cfg = _config(job)
     seq, batch = job["shape"]
+    repl = job.get("replparams", False)
     params = lm.params_from_numpy(job["params"], "cpu")
     res = {"prefill": {}}
-    for impl in ("ref", "kernel"):
+    for impl in job.get("impls", ("ref", "kernel")):
         plain = dict(_build.PLAIN_CALLS)
-        prefill, _, _ = ts.jit_prefill(
+        prefill, _, (pshard, _) = ts.jit_prefill(
             cfg, mesh, tbase.ShapeSpec("sharded", seq, batch, "prefill"),
-            torch.float32, impl)
+            torch.float32, impl, replicate_params_over_data=repl)
+        res["data_split_params"] = _split_over_data(pshard)
         logits = prefill(params, {"tokens": torch.as_tensor(
             job["batch"]["tokens"])})
         res["prefill"][impl] = {
@@ -125,10 +139,12 @@ def _serve_job(job, mesh):
             "logits": logits.full_tensor().numpy(),
             "plain_calls": {k: _build.PLAIN_CALLS[k] - plain.get(k, 0)
                             for k in ("flash_attention", "ssd_scan")}}
-    for update, key in (("dus", ""), ("blend", "_blend")):
-        decode, _, _, (_, cshard, _) = ts.jit_decode_step(
+    for update in job.get("updates", ("dus", "blend")):
+        key = "_blend" if update == "blend" else ""
+        decode, _, _, (pshard, cshard, _) = ts.jit_decode_step(
             cfg, mesh, tbase.ShapeSpec("sharded", seq, batch, "decode"),
-            torch.float32, update)
+            torch.float32, update, replicate_params_over_data=repl)
+        res["data_split_params"] = _split_over_data(pshard)
         caches = lm.init_caches(cfg, batch, seq, torch.float32, device="cpu")
         res["decode" + key] = []
         for pos, tokens in enumerate(job["decode"]):
@@ -136,8 +152,18 @@ def _serve_job(job, mesh):
                                     pos)
             res["decode" + key].append(logits.full_tensor().numpy())
         res["cache_misplaced" + key] = _misplaced(caches, cshard)
+        res["cache_placements" + key] = {
+            sharding.path_str(p): list(x.placements)
+            for p, x in tree_flatten_with_path(caches)}
         res["caches" + key] = _numpy(sharding.gather_tree(caches))
     return res
+
+
+def _split_over_data(pshard):
+    """The paths of the parameters placed split over the "data" mesh dim
+    (mesh dim 0) by placement tree ``pshard``."""
+    return sorted(sharding.path_str(p) for p, pl in
+                  tree_flatten_with_path(pshard) if pl[0].is_shard())
 
 
 def _compress_job(job, mesh):
@@ -192,7 +218,8 @@ def sharded_step_worker(rank, world, store, inbox, out):
                 r = {k: v for k, v in r.items()
                      if k in ("misplaced", "cache_misplaced",
                               "cache_misplaced_blend", "metrics",
-                              "unsharded", "seconds")}
+                              "unsharded", "seconds",
+                              "data_split_params")}
             res[job["name"]] = r
         dist.destroy_process_group()
         out.put((rank, res))

@@ -208,3 +208,71 @@ def test_placement_checks_fail_past_xlas_placements(smoke, moved, faults):
     names each placement past them."""
     lines, got = smoke.placement_checks(*_placement_records(smoke, **moved))
     assert len(lines) == 3 and len(got) == faults
+
+
+def _decode_records(smoke, mem=0, alias=0, coll=0):
+    """The two decodes' records as `decode_memory_checks` reads them,
+    each at XLA's bounds and moved by the given bytes, and the golden
+    they are held to."""
+    from tests.torch_goldens import hillclimb_row_name
+    blend = hillclimb_row_name(*smoke.HILLCLIMB_BLEND)
+    golden = {"full": {smoke.DRYRUN_DECODE: {
+        "memory_analysis": {"per_device_bytes": 700, "alias_bytes": 300},
+        "collectives": {"total_bytes_per_device": 100}}},
+        "hillclimb_full": {blend: {"mem_dev": 800,
+                                   "collective_bytes": 200}},
+        "hillclimb_memory": {blend: {"alias_bytes": 300}}}
+    records = {update: {"memory_analysis": {
+        "per_device_bytes": bound + mem, "alias_bytes": 300 + alias},
+        "collectives": {"total_bytes_per_device": total + coll}}
+        for update, bound, total in (("dus", 700, 100),
+                                     ("blend", 800, 200))}
+    return records, golden
+
+
+@pytest.mark.parametrize("moved,faults", [
+    ({}, 0), ({"mem": 1}, 2), ({"alias": -1}, 2), ({"coll": 1}, 2),
+    ({"mem": -1, "alias": 0, "coll": -1}, 0)])
+def test_decode_memory_checks_fail_past_xlas(smoke, moved, faults):
+    """`decode_memory_checks` passes both decodes at XLA's per-device
+    bytes, alias and raw collective bytes, and names each past them."""
+    lines, got = smoke.decode_memory_checks(*_decode_records(smoke,
+                                                             **moved))
+    assert len(lines) == 2 and len(got) == faults
+    assert all("[dus]" in ln or "[blend]" in ln for ln in lines)
+
+
+def test_moegroup_checks_hold_the_reshape_on_a_reduced_cell(smoke):
+    """`moegroup_checks` on reduced qwen2-moe at `DRYRUN_TRAIN_GROUP`
+    (sequence 1024, groups of 512, 2 microbatches): the `moegroup+mb2`
+    cell, its `_regroup` calls counted by `count_calls`, passes against
+    the same cell ungrouped (`mb2`), and fails with no reshape counted or
+    against itself (the same FLOPs); `count_calls` puts the function
+    back."""
+    import torch
+    from repro_torch.configs.base import ShapeSpec, reduced_config
+    from repro_torch.launch import hillclimb
+    from repro_torch.models import moe
+    from tests.torch_goldens import DRYRUN_TRAIN_GROUP, hillclimb_config
+    cfg = hillclimb_config(reduced_config, get_config, "qwen2_moe_a2p7b", ())
+    shape = ShapeSpec(*DRYRUN_TRAIN_GROUP)
+    fn, threads = moe._regroup, torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        regroups, restore = smoke.count_calls(moe, "_regroup")
+        try:
+            grouped, _ = hillclimb._measure(cfg, shape, "moegroup+mb2",
+                                            False, device="cpu")
+        finally:
+            restore()
+        ungrouped, _ = hillclimb._measure(cfg, shape, "mb2", False,
+                                          device="cpu")
+    finally:
+        torch.set_num_threads(threads)
+    assert moe._regroup is fn
+    assert regroups[0] >= 2 * cfg.n_layers * 2
+    assert smoke.moegroup_checks(grouped, ungrouped, regroups[0], cfg)[1] \
+        == []
+    assert len(smoke.moegroup_checks(grouped, ungrouped, 0, cfg)[1]) == 1
+    assert len(smoke.moegroup_checks(grouped, grouped, regroups[0],
+                                     cfg)[1]) == 1

@@ -7,7 +7,8 @@ Each reduced cell of `DRYRUN_CELLS` runs once, as rank 0 of a fake 256-
 or 512-rank process group started and destroyed for it.  Held exactly:
 the argument bytes against XLA's ``argument_size_in_bytes`` (this rank's
 blocks against XLA's per-device shards), the new state's (or caches')
-bytes against its ``alias_size_in_bytes`` (what JAX donates), the
+bytes against its ``alias_size_in_bytes`` (what JAX donates), a decode
+cell's alias (the caches its step writes in place) against it too, the
 analytic costs (``==``), and the compute and memory terms under each
 package's peaks.  Collective bytes are printed beside JAX's, never
 compared: XLA and DTensor choose different collectives.  The
@@ -29,9 +30,7 @@ from repro_torch.launch import mesh as tmesh
 from repro_torch.models import lm
 from repro_torch.train import train_step as ts
 from tests.torch_goldens import (DATA, DRYRUN_CELLS, DRYRUN_D_MODEL,
-                                 DRYRUN_PREFILL, DRYRUN_SKIPS, DRYRUN_TRAIN,
-                                 HILLCLIMB_ARCH,
-                                 HILLCLIMB_VARIANTS, HYPER_FIELDS,
+                                 DRYRUN_PREFILL, DRYRUN_SKIPS, HYPER_FIELDS,
                                  dryrun_cell_name, path_of)
 
 # the group sizes a collective may have on each mesh: a product of some of
@@ -119,9 +118,13 @@ def test_reduced_cell_equals_jax(cells, golden, arch, spec, mp, nm, impl):
     ma, jma = got["memory_analysis"], want["memory_analysis"]
     assert ma["argument_bytes"] == jma["argument_bytes"], beside
     assert ma["state_bytes"] == jma["alias_bytes"], beside
-    assert ma["alias_bytes"] == 0 and ma["temp_bytes"] == -1
+    # a decode step consumes its caches, as JAX's donated step does; the
+    # train state is not donated
+    decode = spec[3] == "decode"
+    assert ma["alias_bytes"] == (jma["alias_bytes"] if decode else 0)
+    assert ma["temp_bytes"] == -1
     assert ma["per_device_bytes"] == ma["argument_bytes"] + \
-        ma["output_bytes"]
+        ma["output_bytes"] - ma["alias_bytes"]
     assert got["analytic"] == want["analytic"], beside
     flops = want["analytic"]["flops_per_device"]
     hbm = want["analytic"]["hbm_bytes_per_device"]
@@ -172,6 +175,36 @@ def test_decode_collectives_do_not_grow_with_the_cache(capsys, cache_update):
            for seq in (64, 256)}
     assert got[64] == got[256]
     assert got[64]["all-reduce"] > 0
+    assert not dist.is_initialized()
+
+
+@pytest.mark.parametrize("cache_update", ["dus", "blend"])
+def test_placed_decode_step_consumes_its_caches(cache_update):
+    """`jit_decode_step`'s step on reduced qwen1.5-0.5b's dry decode cell
+    (rank 0 of the fake 256-rank group, the cache split along its
+    sequence over "model") returns its given caches, each rank's block
+    written in place (``to_local().data_ptr()`` kept), as JAX's step
+    donates them; the logits are a new tensor, and the dry run reports
+    the caches' bytes as its alias."""
+    cfg = reduced_config(get_config("qwen1p5_0p5b"))
+    shape = ShapeSpec("dry_decode", 64, 32, "decode")
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        with dryrun._fake_group(256):
+            mesh = tmesh.make_production_mesh(device="cpu")
+            step, args = dryrun._cell_step(cfg, shape, mesh, None, "cpu",
+                                           cache_update)
+            given = lm._map(lambda c: c.to_local().data_ptr(), args[1])
+            logits, caches = step(*args)
+            assert lm._map(lambda c: c.to_local().data_ptr(),
+                           caches) == given
+            assert dryrun._alias_bytes(args, (logits, caches)) == \
+                dryrun._local_bytes(caches) > 0
+            assert logits.to_local().data_ptr() not in {
+                x.data_ptr() for x in dryrun._local_blocks(args)}
+    finally:
+        torch.set_num_threads(threads)
     assert not dist.is_initialized()
 
 
@@ -277,33 +310,3 @@ def test_top_collectives_aggregates_and_orders():
     assert hillclimb.top_collectives(unsited, k=2) == [
         ("all-reduce", "f32[75]", "?", 300.0),
         ("all-gather", "bf16[2,5]", "?", 240.0)]
-
-
-@pytest.mark.parametrize("variant", HILLCLIMB_VARIANTS)
-def test_hillclimb_on_a_reduced_config_returns_jax_keys(golden, capsys,
-                                                        variant):
-    """`hillclimb._run` on reduced qwen1.5-0.5b: JAX's keys, JAX's terms
-    under each package's peaks, and the top collectives printed with where
-    each was issued (a frame of the port, or the autograd node of a
-    backward)."""
-    shape = ShapeSpec(*DRYRUN_TRAIN)
-    got = hillclimb._run(reduced_config(get_config(HILLCLIMB_ARCH)), shape,
-                         variant, False, device="cpu")
-    want = golden["hillclimb"][variant]
-    assert set(got) == set(want)
-    assert got["variant"] == variant
-    assert set(got["by_kind"]) == set(want["by_kind"])
-    assert got["collective_bytes"] == got["tpu_corrected_bytes"] > 0
-    for term, peak, jpeak in (("compute_s", tmesh.PEAK_FLOPS_BF16,
-                               jmesh.PEAK_FLOPS_BF16),
-                              ("memory_s", tmesh.HBM_BW, jmesh.HBM_BW)):
-        assert got["terms"][term] * peak == \
-            pytest.approx(want["terms"][term] * jpeak, rel=1e-12)
-    out = capsys.readouterr().out.splitlines()
-    assert out[0].startswith(f"== qwen1.5-0.5b-smoke x dry_train x 16x16 "
-                             f"[{variant}]")
-    rows = [ln for ln in out if "GiB  " in ln]
-    assert rows and all(".py:" in ln or "backward of " in ln
-                        for ln in rows), out
-    assert any("models/lm.py" in ln or "train/train_step.py" in ln
-               for ln in rows), out

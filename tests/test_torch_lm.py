@@ -18,6 +18,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro.configs.base import get_config as jget_config
 from repro.configs.base import reduced_config as jreduced_config
@@ -181,3 +182,83 @@ def test_decode_and_engine_refuse_the_encoder():
                        0, torch.float32)
     with pytest.raises(ValueError, match="supports_decode"):
         ServeEngine(cfg, params, device="cpu")
+
+
+class _Allocations(TorchDispatchMode):
+    """The shapes of the op outputs that are new tensors (their schema
+    return aliases no input: not a view, not an in-place or ``out=``
+    result), in the order the ops ran."""
+
+    def __init__(self):
+        super().__init__()
+        self.shapes = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        outs = out if isinstance(out, (tuple, list)) else (out,)
+        for ret, t in zip(func._schema.returns, outs):
+            if isinstance(t, torch.Tensor) and ret.alias_info is None:
+                self.shapes.append(tuple(t.shape))
+        return out
+
+
+@pytest.mark.parametrize("donate", [False, True])
+@pytest.mark.parametrize("cache_update", ["dus", "blend"])
+@pytest.mark.parametrize("arch", ["qwen1p5_0p5b", "zamba2_2p7b"])
+def test_decode_step_allocates_at_most_one_cache_a_leaf(arch, cache_update,
+                                                        donate):
+    """`lm.decode_step` on reduced dense and hybrid configs, counted by
+    a `TorchDispatchMode` over its op outputs: without ``donate`` one
+    tensor of each cache leaf's shape is allocated (its copy), with
+    ``donate`` none; no kv cache's layer slice is copied either way (the
+    layers write in place).  Without ``donate`` the given caches stay
+    bit-equal; with it they are the returned ones, written in place, and
+    both give the same logits and caches."""
+    cfg = reduced_config(get_config(arch))
+    params = lm.init_params(cfg, 0, device="cpu")
+    gen = torch.Generator().manual_seed(5)
+    caches = lm._map(lambda a: torch.rand(a.shape, generator=gen),
+                     lm.init_caches(cfg, B, MAX_LEN, torch.float32,
+                                    device="cpu"))
+    before = lm._map(torch.clone, caches)
+    tokens = torch.tensor(np.random.default_rng(6).integers(
+        0, cfg.vocab, (B, 1)).astype(np.int32))
+    leaves = jax.tree_util.tree_leaves(caches)
+    with torch.no_grad(), _Allocations() as mode:
+        logits, new = lm.decode_step(cfg, params, caches, tokens, 3,
+                                     torch.float32, cache_update,
+                                     donate=donate)
+    for leaf in leaves:
+        mine = sum(tuple(x.shape) == tuple(leaf.shape) for x in leaves)
+        assert mode.shapes.count(tuple(leaf.shape)) == \
+            (0 if donate else mine), leaf.shape
+    kv = [x for k in ("attn", "shared_attn") if k in caches
+          for x in caches[k].values()]
+    assert kv and all(tuple(x.shape[1:]) not in mode.shapes for x in kv)
+    flat_new = jax.tree_util.tree_leaves(new)
+    flat_before = jax.tree_util.tree_leaves(before)
+    if donate:
+        assert all(a is b for a, b in zip(flat_new, leaves))
+        want_logits, want = lm.decode_step(cfg, params, before, tokens, 3,
+                                           torch.float32, cache_update)
+        assert torch.equal(logits, want_logits)
+        for a, b in zip(flat_new, jax.tree_util.tree_leaves(want)):
+            assert torch.equal(a, b)
+    else:
+        for a, b in zip(leaves, flat_before):
+            assert torch.equal(a, b)
+        assert not any(torch.equal(a, b)
+                       for a, b in zip(flat_new, flat_before))
+
+
+def test_donated_decode_refuses_autograd():
+    """A decode writes its caches in place, so where autograd records the
+    values it writes it raises, naming ``torch.no_grad()``."""
+    cfg = reduced_config(get_config("qwen1p5_0p5b"))
+    params = lm._map(lambda a: a.requires_grad_(),
+                     lm.init_params(cfg, 0, device="cpu"))
+    caches = lm.init_caches(cfg, B, MAX_LEN, torch.float32, device="cpu")
+    with pytest.raises(RuntimeError, match="no_grad"):
+        lm.decode_step(cfg, params, caches,
+                       torch.zeros((B, 1), dtype=torch.int32), 0,
+                       torch.float32, donate=True)

@@ -37,6 +37,7 @@ import numpy as np
 import pytest
 import torch
 import torch.distributed as dist
+from torch.distributed.tensor import Shard
 
 from repro.models import lm as jlm
 from repro.optim import adamw as jadamw
@@ -50,9 +51,13 @@ from repro_torch.train.trainer import Trainer, TrainerConfig
 from tests import _torch_gloo
 from tests.torch_goldens import (DATA, SHARDED_CASES, SHARDED_DECODE_STEPS,
                                  SHARDED_MICRO, SHARDED_SHAPE, SHARDED_STEPS,
-                                 path_of, sharded_inputs, sharded_rows)
+                                 SHARDED_VARIANTS, path_of, sharded_inputs,
+                                 sharded_rows, sharded_variant_config)
 
 ARCHS = tuple(sorted({arch for arch, _ in SHARDED_CASES}))
+VARIANTS = SHARDED_VARIANTS
+VARIANT_TRAIN = [(a, v) for a, v, what in VARIANTS if what == "train"]
+VARIANT_SERVE = [c for c in VARIANTS if c[2] != "train"]
 DECODE_STEPS = SHARDED_DECODE_STEPS
 TRAIN = [(arch, mi, nm, sp) for arch, mi in SHARDED_CASES
          for nm, sp in SHARDED_STEPS]
@@ -65,6 +70,10 @@ COUNTED = "qwen1p5_0p5b"
 
 def _name(arch, mi, nm, sp):
     return f"{arch}_{mi}_nm{nm}_sp{int(sp)}"
+
+
+def _remat(variant):
+    return "dots" if variant == "dots_remat" else "none"
 
 
 def _np(tree):
@@ -85,19 +94,19 @@ _APPLY = jax.jit(functools.partial(jadamw.apply_updates,
 
 
 @functools.lru_cache(maxsize=None)
-def _jax_value_and_grad(cfg, moe_impl):
-    """`lm.loss_fn`'s value and gradient, jitted once a config and
-    dispatch (both steps' microbatches share one shape)."""
+def _jax_value_and_grad(cfg, moe_impl, remat="none"):
+    """`lm.loss_fn`'s value and gradient, jitted once a config, dispatch
+    and remat (both steps' microbatches share one shape)."""
     return jax.jit(jax.value_and_grad(
-        lambda p, b: jlm.loss_fn(cfg, p, b, jnp.float32, remat="none",
+        lambda p, b: jlm.loss_fn(cfg, p, b, jnp.float32, remat=remat,
                                  moe_impl=moe_impl), has_aux=True))
 
 
-def _jax_step(cfg, state, batch, nm, moe_impl):
+def _jax_step(cfg, state, batch, nm, moe_impl, remat="none"):
     """Reference (a) of a train step: the JAX step's computation without a
     mesh (each function jitted whole, for speed).  Returns (metrics, new
     params, new AdamW state)."""
-    vg = _jax_value_and_grad(cfg, moe_impl)
+    vg = _jax_value_and_grad(cfg, moe_impl, remat)
     B = batch["tokens"].shape[0]
     grads, ms = None, []
     for i in range(nm):
@@ -176,6 +185,30 @@ def _run_and_reference(ranks):
     _, _, batch = inputs[COUNTED]
     jobs.append(dict(kind="compress", name="compress", arch=COUNTED, nm=2,
                      shape=SHARDED_SHAPE, batch=batch))
+    with ThreadPoolExecutor(len(SHARDED_VARIANTS)) as pool:
+        vinputs = dict(zip(VARIANTS, pool.map(
+            lambda c: sharded_inputs(c[0], c[1]), VARIANTS)))
+    for arch, variant, what in SHARDED_VARIANTS:
+        _, state, batch = vinputs[(arch, variant, what)]
+        name = f"{arch}_{variant}"
+        if what == "train":
+            st = _np(state)
+            jobs.append(dict(kind="train", name=name, arch=arch,
+                             variant=variant, moe_impl="gshard", nm=1,
+                             sp=False, remat=_remat(variant),
+                             shape=(SHARDED_SHAPE[0], SHARDED_MICRO),
+                             params=st.params, step=st.opt.step,
+                             mu=st.opt.mu, nu=st.opt.nu,
+                             batch=sharded_rows(batch, 1)))
+        else:
+            jobs.append(dict(kind="serve", name=name, arch=arch,
+                             variant=variant, shape=SHARDED_SHAPE,
+                             params=_np(state.params), batch=batch,
+                             decode=[batch["tokens"][:, i:i + 1]
+                                     for i in range(DECODE_STEPS)],
+                             impls=("ref",) if what == "serve" else (),
+                             updates=("dus",),
+                             replparams=variant == "replparams"))
     ranks.send(jobs)
 
     def case(arch, mi):
@@ -186,15 +219,29 @@ def _run_and_reference(ranks):
             cfg, state, sharded_rows(batch, nm), nm, mi)
             for nm, sp in SHARDED_STEPS}
 
-    with ThreadPoolExecutor(len(SHARDED_CASES) + len(ARCHS)) as pool:
+    def variant(arch, name, what):
+        """A `SHARDED_VARIANTS` case's reference (a): the train step, or
+        the serving steps (for "replparams" the same function as the
+        case without it)."""
+        cfg, state, batch = vinputs[(arch, name, what)]
+        if what == "train":
+            return _jax_step(cfg, state, sharded_rows(batch, 1), 1, "gshard",
+                             _remat(name))
+        return _jax_serve(cfg, state.params, batch)
+
+    with ThreadPoolExecutor(len(SHARDED_CASES) + len(ARCHS)
+                            + len(VARIANTS)) as pool:
         futures = [pool.submit(case, arch, mi)
                    for arch, mi in SHARDED_CASES]
         serve = {arch: pool.submit(_jax_serve, inputs[arch][0],
                                    inputs[arch][1].params, inputs[arch][2])
                  for arch in ARCHS}
+        vrefs = {f"{a}_{v}": pool.submit(variant, a, v, w)
+                 for a, v, w in VARIANTS}
         refs = {k: v for f in futures for k, v in f.result().items()}
         refs.update({f"{arch}_serve": f.result()
                      for arch, f in serve.items()})
+        refs.update({k: f.result() for k, f in vrefs.items()})
     got = ranks.collect(RANK_TIMEOUT)
     return got, refs
 
@@ -318,11 +365,13 @@ def test_decode_steps_on_four_ranks_equal_jax(runs, arch):
     _check_decode(got, arch, "", want_logits, want_caches)
 
 
-def _check_decode(got, arch, key, want_logits, want_caches):
+def _check_decode(got, arch, key, want_logits, want_caches,
+                  job="serve"):
     """Rank 0's decode logits and gathered caches of the ``key`` run
-    ("" for "dus", "_blend") against JAX's; every rank's caches placed by
-    `cache_shardings`."""
-    res = got[0][f"{arch}_serve"]
+    ("" for "dus", "_blend") of job ``{arch}_{job}`` against JAX's; every
+    rank's caches placed by `cache_shardings`."""
+    res = got[0][f"{arch}_{job}"]
+    assert len(res["decode" + key]) == len(want_logits) == DECODE_STEPS
     for i, (g, w) in enumerate(zip(res["decode" + key], want_logits)):
         np.testing.assert_allclose(g, w, err_msg=f"token {i}", **TENSOR_TOL)
     assert sorted(res["caches" + key]) == sorted(want_caches)
@@ -330,7 +379,7 @@ def _check_decode(got, arch, key, want_logits, want_caches):
         np.testing.assert_allclose(res["caches" + key][k], v, err_msg=k,
                                    **TENSOR_TOL)
     for rank in range(4):
-        assert got[rank][f"{arch}_serve"]["cache_misplaced" + key] == []
+        assert got[rank][f"{arch}_{job}"]["cache_misplaced" + key] == []
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -351,6 +400,83 @@ def test_blend_decode_steps_on_four_ranks_equal_jax(runs, golden, arch):
     for lg, s, a in zip(logits, g["logits_sums"], g["logits_abs_sums"]):
         assert float(np.abs(lg).sum()) == pytest.approx(a, rel=1e-5)
         assert float(lg.sum()) == pytest.approx(s, rel=1e-5, abs=1e-3)
+
+
+@pytest.fixture(scope="module")
+def variants_golden():
+    return json.loads(path_of("sharded_variants", DATA).read_text())
+
+
+@pytest.mark.parametrize("arch,variant", VARIANT_TRAIN)
+def test_variant_train_step_on_four_ranks_equals_jax(runs, variants_golden,
+                                                     arch, variant):
+    """The hillclimb variants that change the train step on the (2, 2)
+    mesh, 1 microbatch: "dots_remat" (remat "dots" under the mesh rules,
+    `sharding.bind_mesh_rules`) and "moegroup" (the MoE routed in groups
+    of `SHARDED_GROUP` tokens, so `moe_block`'s group reshape runs on
+    DTensors).  Every rank's metrics equal JAX's without a mesh (a),
+    rank 0's gathered state holds JAX's parameters and moments, every
+    output leaf is placed by `state_shardings`, and the loss and grad
+    norm equal JAX's own sharded step on the same mesh (b)."""
+    got, refs = _results(runs)
+    name = f"{arch}_{variant}"
+    want_m, want_p, want_opt = refs[name]
+    for rank in range(4):
+        res = got[rank][name]
+        assert res["misplaced"] == [], (rank, res["misplaced"])
+        assert set(res["metrics"]) == set(want_m)
+        for k, v in want_m.items():
+            assert res["metrics"][k] == pytest.approx(v, **METRIC_TOL), \
+                (rank, k)
+    state = got[0][name]["state"]
+    want = {**_flat(want_p, ".params/"), **_flat(want_opt.mu, ".opt/.mu/"),
+            **_flat(want_opt.nu, ".opt/.nu/")}
+    assert sorted(state) == sorted(list(want) + [".opt/.step"])
+    for k, v in want.items():
+        np.testing.assert_allclose(state[k], v, err_msg=k, **TENSOR_TOL)
+    g = variants_golden[name]["train"]
+    m = got[0][name]["metrics"]
+    assert m["loss"] == pytest.approx(g["loss"], rel=1e-5)
+    assert m["grad_norm"] == pytest.approx(g["grad_norm"], rel=1e-5)
+
+
+@pytest.mark.parametrize("arch,variant,what", VARIANT_SERVE)
+def test_variant_serving_on_four_ranks_equals_jax(runs, variants_golden,
+                                                  arch, variant, what):
+    """The hillclimb variants that change the serving steps' placements
+    on the (2, 2) mesh: "replparams" (`jit_prefill` and `DECODE_STEPS`
+    "dus" `jit_decode_step`s with the parameters replicated over "data":
+    no parameter split there, where the same steps without it split
+    some) and "kvrep" (the decode steps on 16 kv heads replicated over
+    "model", ``force_kv_replicate``: no cache split by its kv heads).
+    Logits and caches equal JAX's without a mesh (a); the logits' sums
+    equal JAX's own sharded steps' (b), absolute sums rel 1e-5, sums
+    within 1e-3."""
+    got, refs = _results(runs)
+    name = f"{arch}_{variant}"
+    want = refs[name]
+    res = got[0][name]
+    g = variants_golden[name]
+    if what == "serve":
+        np.testing.assert_allclose(res["prefill"]["ref"]["logits"], want[0],
+                                   **TENSOR_TOL)
+        assert float(np.abs(res["prefill"]["ref"]["logits"]).sum()) == \
+            pytest.approx(g["prefill"]["logits_abs_sum"], rel=1e-5)
+    _check_decode(got, arch, "", want[1], want[2], job=variant)
+    for lg, s_, a in zip(res["decode"], g["decode"]["logits_sums"],
+                         g["decode"]["logits_abs_sums"]):
+        assert float(np.abs(lg).sum()) == pytest.approx(a, rel=1e-5)
+        assert float(lg.sum()) == pytest.approx(s_, rel=1e-5, abs=1e-3)
+    if variant == "replparams":
+        assert got[0][f"{arch}_serve"]["data_split_params"]
+        for rank in range(4):
+            assert got[rank][name]["data_split_params"] == []
+    if variant == "kvrep":
+        cfg = sharded_variant_config(
+            tbase.reduced_config(tbase.get_config(arch)), variant)
+        assert cfg.n_kv_heads == tbase.TP_DEGREE and not cfg.kv_sharded
+        for path, pl in res["cache_placements"].items():
+            assert Shard(3) not in pl, (path, pl)
 
 
 @pytest.mark.parametrize("arch", ARCHS)

@@ -33,6 +33,11 @@ but ``wall_s`` and ``guests_per_sec``.  The goldens:
                                microbatch of 2 rows; 2 of 2 with
                                ``sequence_parallel``), and
                                ``jit_prefill``'s logits sums (4 rows)
+  sharded_variants             the same mesh and process for each
+                               `SHARDED_VARIANTS` case: the train step's
+                               loss, grad norm and collectives by kind,
+                               or the prefill's logits sums and the
+                               decode steps' logits sums
   dryrun                       the JAX dry run and hillclimb driver, in a
                                process of their own with 512 host devices
                                and ``make_production_mesh`` replaced by an
@@ -43,9 +48,10 @@ but ``wall_s`` and ``guests_per_sec``.  The goldens:
                                ``compile_cell`` records of `DRYRUN_CELLS`
                                (reduced) and `DRYRUN_FULL` (full width);
                                ``run_cell`` of `DRYRUN_SKIPS`;
-                               ``hillclimb.run`` of `HILLCLIMB_VARIANTS`
-                               on reduced qwen1.5-0.5b and of
-                               `HILLCLIMB_FULL`
+                               ``hillclimb.run`` of `HILLCLIMB_ROWS`
+                               (reduced) and `HILLCLIMB_FULL` (full
+                               width), with each compiled step's memory
+                               analysis
   pod_loop                     the pod backend's closed loop:
                                ``run_pod_loop("on")`` and ``("off")`` at
                                seed 0, ``PodFleetSim(intervals=12,
@@ -94,6 +100,37 @@ SHARDED_SHAPE = (16, 4)
 # the batch's rows at position i
 SHARDED_DECODE_STEPS = 2
 SHARDED_MICRO = 2
+# The hillclimb variants that change the sharded step's function or its
+# placements, each on the same (2, 2) mesh from its own config's
+# `sharded_inputs` (f32, no remat but where named): (arch, variant, what
+# runs).  "dots_remat": the train step (1 microbatch) under remat "dots";
+# "moegroup": the train step with the MoE routed in groups of
+# `SHARDED_GROUP` tokens, shorter than the sequence, so `moe_block`'s group
+# reshape runs; "replparams": the prefill and `SHARDED_DECODE_STEPS` "dus"
+# decode steps with the parameters replicated over "data"; "kvrep": the
+# decode steps on the 16-kv-head config (`KV16`) with its kv heads
+# replicated over "model" (``force_kv_replicate``).
+SHARDED_VARIANTS = (("qwen1p5_0p5b", "dots_remat", "train"),
+                    ("qwen2_moe_a2p7b", "moegroup", "train"),
+                    ("qwen1p5_0p5b", "replparams", "serve"),
+                    ("zamba2_2p7b", "replparams", "serve"),
+                    ("qwen1p5_0p5b", "kvrep", "decode"))
+SHARDED_GROUP = 8
+# 16 query and 16 kv heads: as many kv heads as `TP_DEGREE`, so that
+# ``force_kv_replicate`` changes their placement (at 4 it changes nothing)
+KV16 = (("n_heads", 16), ("n_kv_heads", 16))
+
+
+def sharded_variant_config(cfg, variant: str):
+    """Either package's reduced ``cfg`` as a `SHARDED_VARIANTS` case
+    changes it (the configs are dataclasses with the same fields)."""
+    if variant == "moegroup":
+        return dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, group_size=SHARDED_GROUP))
+    if variant == "kvrep":
+        return dataclasses.replace(cfg, force_kv_replicate=True,
+                                   **dict(KV16))
+    return cfg
 
 
 def sharded_rows(data: dict, nm: int) -> dict:
@@ -113,9 +150,7 @@ def sharded_rows(data: dict, nm: int) -> dict:
 # microbatches, moe dispatch), None for `compile_cell`'s default (8 for
 # train_4k, 16 for the moe family); `chip_smoke.py` runs the train cells
 # at 2 microbatches, a quarter of the host time of 8, and holds their
-# argument bytes (which the microbatches do not change) to both.  The
-# hillclimb's variants run on reduced qwen1.5-0.5b at DRYRUN_TRAIN, and at
-# full width the one `chip_smoke.py` runs (HILLCLIMB_FULL).
+# argument bytes (which the microbatches do not change) to both.
 DRYRUN_TRAIN = ("dry_train", 64, 32, "train")
 DRYRUN_PREFILL = ("dry_prefill", 64, 32, "prefill")
 DRYRUN_CELLS = (("qwen1p5_0p5b", DRYRUN_TRAIN, False, 2, "gshard"),
@@ -145,13 +180,60 @@ DRYRUN_FULL = (("qwen2.5-14b", "train_4k", False, None, "gshard"),
                ("llama4-scout-17b-a16e", "train_4k", False, 2, "gshard"),
                ("hubert-xlarge", "prefill_32k", False, None, "gshard"),
                ("pixtral-12b", "prefill_32k", False, None, "gshard"))
-HILLCLIMB_FULL = ("qwen2.5-14b", "train_4k", "seqpar+mb2", False)
+# The hillclimb's variants, each on the cell it changes, single pod.
+# Reduced (`HILLCLIMB_ROWS`): (variant, arch, shape spec, config fields
+# replaced), each on `reduced_config(arch, d_model=DRYRUN_D_MODEL.get(arch,
+# 128))` with those fields; the train variants at DRYRUN_TRAIN but
+# "moegroup", whose group of 512 tokens must be shorter than the sequence
+# (DRYRUN_TRAIN_GROUP), and "mb4", whose 4 microbatches need 4 rows a data
+# rank (DRYRUN_TRAIN_B64; the port refuses a microbatch of less than a row
+# a rank, XLA pads it); "kvrep" on 16 kv heads (`KV16`).  Full width
+# (`HILLCLIMB_FULL`, what `tools/hillclimb_variants.py` runs on the card):
+# (variant, arch, shape name); "+mb2" keeps a train step's host time at
+# path (ix)'s, but "dots_remat" runs at the dry run's default 8: at 2 the
+# saved products outgrow the card (XLA's step needs 180.01 GiB a device
+# there, 47.24 at 8).  "kvrep" runs qwen1.5-0.5b, whose 16 kv heads it
+# moves from split over "model" to replicated: qwen1.5-4b's 20 kv heads,
+# replicated, cannot serve its 32 padded query heads (JAX's decode fails
+# to trace, a (B, 1, 32, D) query grouped as 20 x 1).  The golden holds
+# JAX's ``hillclimb.run`` record of each row under `hillclimb_row_name`
+# ("hillclimb", "hillclimb_full") and its compiled step's memory analysis
+# ("hillclimb_memory").
+DRYRUN_DECODE = ("dry_decode", 64, 32, "decode")
+DRYRUN_TRAIN_GROUP = ("dry_train_group", 1024, 32, "train")
+DRYRUN_TRAIN_B64 = ("dry_train_b64", 64, 64, "train")
+HILLCLIMB_ROWS = (
+    ("baseline", "qwen1p5_0p5b", DRYRUN_TRAIN, ()),
+    ("seqpar", "qwen1p5_0p5b", DRYRUN_TRAIN, ()),
+    ("bf16_cast+mb2", "qwen1p5_0p5b", DRYRUN_TRAIN, ()),
+    ("seqpar+bf16+mb2", "qwen1p5_0p5b", DRYRUN_TRAIN, ()),
+    ("dots_remat+mb2", "qwen1p5_0p5b", DRYRUN_TRAIN, ()),
+    ("mb4", "qwen1p5_0p5b", DRYRUN_TRAIN_B64, ()),
+    ("sorted_moe+mb2", "qwen2_moe_a2p7b", DRYRUN_TRAIN, ()),
+    ("sorted_moe+bf16+mb2", "qwen2_moe_a2p7b", DRYRUN_TRAIN, ()),
+    ("moegroup+mb2", "qwen2_moe_a2p7b", DRYRUN_TRAIN_GROUP, ()),
+    ("cf1+mb2", "qwen2_moe_a2p7b", DRYRUN_TRAIN, ()),
+    ("kvrep", "qwen1p5_0p5b", DRYRUN_DECODE, KV16),
+    ("blend", "qwen1p5_0p5b", DRYRUN_DECODE, ()),
+    ("replparams", "zamba2_2p7b", DRYRUN_PREFILL, ()),
+    ("replparams", "qwen1p5_0p5b", DRYRUN_DECODE, ()))
+HILLCLIMB_FULL = (("seqpar+mb2", "qwen2.5-14b", "train_4k"),
+                  ("bf16_cast+mb2", "qwen2.5-14b", "train_4k"),
+                  ("seqpar+bf16+mb2", "qwen2.5-14b", "train_4k"),
+                  ("dots_remat", "qwen2.5-14b", "train_4k"),
+                  ("mb4", "qwen2.5-14b", "train_4k"),
+                  ("sorted_moe+mb2", "qwen2-moe-a2.7b", "train_4k"),
+                  ("sorted_moe+bf16+mb2", "qwen2-moe-a2.7b", "train_4k"),
+                  ("moegroup+mb2", "qwen2-moe-a2.7b", "train_4k"),
+                  ("cf1+mb2", "qwen2-moe-a2.7b", "train_4k"),
+                  ("kvrep", "qwen1.5-0.5b", "decode_32k"),
+                  ("blend", "qwen2.5-14b", "decode_32k"),
+                  ("replparams", "zamba2-2.7b", "prefill_32k"),
+                  ("replparams", "qwen2.5-14b", "decode_32k"))
 # cells the dry run skips: long_500k on a pure-attention arch, a decode
 # on the encoder
 DRYRUN_SKIPS = (("qwen2.5-14b", "long_500k", False),
                 ("hubert-xlarge", "decode_32k", True))
-HILLCLIMB_ARCH = "qwen1p5_0p5b"
-HILLCLIMB_VARIANTS = ("baseline", "seqpar")
 # the TrainHyper fields `hyper_for` sets (the AdamW config and the compute
 # dtype are each package's own objects)
 HYPER_FIELDS = ("microbatches", "remat", "compress_cross_pod", "impl",
@@ -164,6 +246,20 @@ def dryrun_cell_name(arch: str, shape_name: str, multi_pod: bool,
     impl = "" if moe_impl == "gshard" else f"_{moe_impl}"
     return (f"{arch}_{shape_name}{mb}{impl}_"
             f"{'multi' if multi_pod else 'single'}")
+
+
+def hillclimb_row_name(variant: str, arch: str, shape_name: str,
+                      replaced=()) -> str:
+    fields = "".join(f"_{k}{v}" for k, v in replaced)
+    return f"{arch}{fields}_{shape_name}_{variant}"
+
+
+def hillclimb_config(reduced_config, get_config, arch: str, replaced=()):
+    """A reduced hillclimb row's config, built by either package's
+    ``reduced_config`` and ``get_config``."""
+    return dataclasses.replace(reduced_config(
+        get_config(arch), d_model=DRYRUN_D_MODEL.get(arch, 128)),
+        **dict(replaced))
 
 
 SHARD_GUESTS = (8, 64, 256)
@@ -265,14 +361,15 @@ def golden_pod_loop() -> dict:
             "export": json.loads(json.dumps(export, sort_keys=True))}
 
 
-def sharded_inputs(arch: str):
-    """(JAX config, JAX train state, numpy batch) of a sharded-step case,
-    as the golden and the tests build them."""
+def sharded_inputs(arch: str, variant: str = ""):
+    """(JAX config, JAX train state, numpy batch) of a sharded-step case
+    (a `SHARDED_VARIANTS` case with ``variant``), as the golden and the
+    tests build them."""
     import jax
     from repro.configs.base import ShapeSpec, get_config, reduced_config
     from repro.data import pipeline
     from repro.train import train_step as jts
-    cfg = reduced_config(get_config(arch))
+    cfg = sharded_variant_config(reduced_config(get_config(arch)), variant)
     state = jax.jit(lambda k: jts.make_train_state(cfg, jts.TrainHyper(),
                                                    k))(jax.random.PRNGKey(0))
     seq, batch = SHARDED_SHAPE
@@ -332,7 +429,60 @@ def _sharded_steps() -> dict:
     return out
 
 
-def _sharded_decode(cfg, mesh, params, data, cache_update: str) -> dict:
+def _sharded_variants() -> dict:
+    """The ``sharded_variants`` golden's content; needs four JAX devices
+    (see `golden_sharded_steps`)."""
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+    from jax.sharding import AxisType
+    from repro.configs.base import ShapeSpec
+    from repro.launch.roofline import parse_collectives
+    from repro.train import train_step as jts
+    mesh = jax.make_mesh((2, 2), ("data", "model"),
+                         axis_types=(AxisType.Auto,) * 2)
+    seq, batch = SHARDED_SHAPE
+    out = {}
+    for arch, variant, what in SHARDED_VARIANTS:
+        cfg, state, data = sharded_inputs(arch, variant)
+        state = jax.tree_util.tree_map(np.asarray, state)
+        case = {}
+        if what == "train":
+            hyper = jts.TrainHyper(
+                microbatches=1, compute_dtype=jnp.float32,
+                remat="dots" if variant == "dots_remat" else "none")
+            shape = ShapeSpec("sharded", seq, SHARDED_MICRO, "train")
+            step, _, st_shard, bshard = jts.jit_train_step(cfg, mesh, hyper,
+                                                           shape)
+            placed = jax.device_put(state, st_shard)
+            b = {k: jax.device_put(v, bshard[k])
+                 for k, v in sharded_rows(data, 1).items() if k in bshard}
+            coll = parse_collectives(step.lower(placed, b).compile()
+                                     .as_text())
+            _, metrics = step(placed, b)
+            case["train"] = {"loss": float(metrics["loss"]),
+                             "grad_norm": float(metrics["grad_norm"]),
+                             "collectives_by_kind": coll.by_kind}
+        if what == "serve":
+            prefill, _, (pshard, bshard) = jts.jit_prefill(
+                cfg, mesh, ShapeSpec("sharded", seq, batch, "prefill"),
+                jnp.float32, "ref", replicate_params_over_data=True)
+            logits = np.asarray(prefill(
+                jax.device_put(state.params, pshard),
+                {"tokens": jax.device_put(data["tokens"],
+                                          bshard["tokens"])}))
+            case["prefill"] = {"logits_sum": float(logits.sum()),
+                               "logits_abs_sum": float(np.abs(logits).sum())}
+        if what in ("serve", "decode"):
+            case["decode"] = _sharded_decode(
+                cfg, mesh, state.params, data, "dus",
+                replicate_params_over_data=variant == "replparams")
+        out[f"{arch}_{variant}"] = case
+    return out
+
+
+def _sharded_decode(cfg, mesh, params, data, cache_update: str,
+                    replicate_params_over_data: bool = False) -> dict:
     """`SHARDED_DECODE_STEPS` of JAX's ``jit_decode_step`` on ``mesh``
     from empty caches (f32): each token's logits' sum and absolute sum."""
     import jax
@@ -344,7 +494,8 @@ def _sharded_decode(cfg, mesh, params, data, cache_update: str) -> dict:
     seq, batch = SHARDED_SHAPE
     step, _, _, (pshard, cshard, bshard) = jts.jit_decode_step(
         cfg, mesh, ShapeSpec("sharded", seq, batch, "decode"), jnp.float32,
-        cache_update=cache_update)
+        cache_update=cache_update,
+        replicate_params_over_data=replicate_params_over_data)
     placed = jax.device_put(params, pshard)
     caches = jax.device_put(lm.init_caches(cfg, batch, seq, jnp.float32),
                             cshard)
@@ -360,13 +511,14 @@ def _sharded_decode(cfg, mesh, params, data, cache_update: str) -> dict:
     return {"logits_sums": sums, "logits_abs_sums": abs_sums}
 
 
-def golden_sharded_steps() -> dict:
-    """Runs `_sharded_steps` in a process of its own that sets
+def golden_sharded_steps(child: str = "--sharded-child") -> dict:
+    """Runs `_sharded_steps` (or with ``child`` "--sharded-variants-child"
+    `_sharded_variants`) in a process of its own that sets
     ``XLA_FLAGS=--xla_force_host_platform_device_count=4`` before JAX is
     imported."""
     env = {**os.environ, "JAX_PLATFORMS": "cpu",
            "XLA_FLAGS": "--xla_force_host_platform_device_count=4"}
-    proc = subprocess.run([sys.executable, __file__, "--sharded-child"],
+    proc = subprocess.run([sys.executable, __file__, child],
                           env=env, capture_output=True, text=True)
     if proc.returncode:
         raise RuntimeError(proc.stderr[-4000:])
@@ -438,18 +590,49 @@ def _dryrun() -> dict:
         rec["collectives"].pop("ops")
         out["full"][dryrun_cell_name(arch, shape_name, mp, nm, impl)] = \
             _jsonable(rec)
-    out["hillclimb_full"] = _jsonable(hillclimb.run(*HILLCLIMB_FULL,
-                                                    show_top=False))
     out["skips"] = {dryrun_cell_name(arch, shape_name, mp):
                     dryrun.run_cell(arch, shape_name, mp)
                     for arch, shape_name, mp in DRYRUN_SKIPS}
-    shape = ShapeSpec(*DRYRUN_TRAIN)
-    hillclimb.get_config = lambda arch: reduced_config(get_config(arch))
-    hillclimb.SHAPE_BY_NAME = {**SHAPE_BY_NAME, shape.name: shape}
-    for variant in HILLCLIMB_VARIANTS:
-        out["hillclimb"][variant] = _jsonable(hillclimb.run(
-            HILLCLIMB_ARCH, shape.name, variant, False, show_top=False))
+    out["hillclimb_full"], out["hillclimb_memory"] = {}, {}
+    for variant, arch, shape_name in HILLCLIMB_FULL:
+        name = hillclimb_row_name(variant, arch, shape_name)
+        out["hillclimb_full"][name], out["hillclimb_memory"][name] = \
+            _hillclimb_row(hillclimb, arch, shape_name, variant)
+    configs = hillclimb.get_config
+    for variant, arch, spec, replaced in HILLCLIMB_ROWS:
+        shape = ShapeSpec(*spec)
+        cfg = hillclimb_config(reduced_config, configs, arch, replaced)
+        hillclimb.get_config = lambda _, cfg=cfg: cfg
+        hillclimb.SHAPE_BY_NAME = {**SHAPE_BY_NAME, shape.name: shape}
+        name = hillclimb_row_name(variant, arch, shape.name, replaced)
+        out["hillclimb"][name], out["hillclimb_memory"][name] = \
+            _hillclimb_row(hillclimb, arch, shape.name, variant)
     return out
+
+
+def _hillclimb_row(hillclimb, arch: str, shape_name: str, variant: str):
+    """JAX's ``hillclimb.run`` record of a single-pod row and the memory
+    analysis of the step it compiled (read where ``run`` reads it)."""
+    import jax
+    seen = []
+    analysis = jax.stages.Compiled.memory_analysis
+
+    def record(compiled):
+        ma = analysis(compiled)
+        seen.append(ma)
+        return ma
+    jax.stages.Compiled.memory_analysis = record
+    try:
+        rec = hillclimb.run(arch, shape_name, variant, False,
+                            show_top=False)
+    finally:
+        jax.stages.Compiled.memory_analysis = analysis
+    ma, = seen
+    return _jsonable(rec), {
+        "argument_bytes": int(ma.argument_size_in_bytes),
+        "output_bytes": int(ma.output_size_in_bytes),
+        "temp_bytes": int(ma.temp_size_in_bytes),
+        "alias_bytes": int(ma.alias_size_in_bytes)}
 
 
 def golden_dryrun() -> dict:
@@ -476,6 +659,8 @@ def goldens() -> dict:
     g["tune"] = golden_tune
     g["pod_loop"] = golden_pod_loop
     g["sharded_steps"] = golden_sharded_steps
+    g["sharded_variants"] = lambda: golden_sharded_steps(
+        "--sharded-variants-child")
     g["dryrun"] = golden_dryrun
     return g
 
@@ -487,6 +672,10 @@ def path_of(name: str, out: Path = DATA) -> Path:
 def main(argv=None) -> int:
     if (argv if argv is not None else sys.argv[1:]) == ["--sharded-child"]:
         print(json.dumps(_sharded_steps(), sort_keys=True))
+        return 0
+    if (argv if argv is not None else sys.argv[1:]) == \
+            ["--sharded-variants-child"]:
+        print(json.dumps(_sharded_variants(), sort_keys=True))
         return 0
     if (argv if argv is not None else sys.argv[1:]) == ["--dryrun-child"]:
         print(json.dumps(_dryrun(), sort_keys=True))

@@ -8,11 +8,12 @@ over the "pod" mesh dim alone (a group of 2 ranks).
 MESH is ``single`` or ``multi``; NM the train cells' microbatches (empty:
 `launch.dryrun.default_microbatches`); CACHE the decode's cache write
 (``dus``, the default, or ``blend``).  Each cell runs as rank 0 of a fake
-256- or 512-rank group (`launch.dryrun`), on the card, and prints one
-``CELL`` JSON line (argument bytes, the card's peak above what was
-allocated before the call, collective bytes by kind, wall seconds), then
-its top rows.  A cell that raises prints ``FAILED`` and its traceback, and
-the next cell runs.  Put another tree's ``src`` first on ``PYTHONPATH`` to
+256- or 512-rank group (`launch.dryrun._measure_cell`, the dry run's
+record), on the card, and prints one ``CELL`` JSON line (argument and
+alias bytes, the per-device bytes: the card's peak above what was
+allocated before the call with the arguments, less the alias; collective
+bytes by kind, wall seconds), then its top rows.  A cell that raises
+prints ``FAILED`` and its traceback, and the next cell runs.  Put another tree's ``src`` first on ``PYTHONPATH`` to
 run that tree's port.
 """
 
@@ -28,7 +29,6 @@ import torch
 
 from repro_torch.configs.base import SHAPE_BY_NAME, get_config
 from repro_torch.launch import dryrun, hillclimb
-from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.train import train_step as ts
 
 
@@ -36,25 +36,21 @@ def run(arch: str, shape: str, multi_pod: bool, nm, cache_update="dus",
         top: int = 12) -> None:
     cfg, sh = get_config(arch), SHAPE_BY_NAME[shape]
     hyper = None
-    if sh.kind == "train":
-        hyper = ts.TrainHyper(microbatches=nm or dryrun.default_microbatches(
-            cfg, sh, multi_pod), compress_cross_pod=multi_pod)
+    if sh.kind == "train" and nm:
+        hyper = ts.TrainHyper(microbatches=nm, compress_cross_pod=multi_pod)
     t0 = time.time()
-    with dryrun._fake_group(512 if multi_pod else 256):
-        mesh = make_production_mesh(multi_pod=multi_pod)
-        step, args = dryrun._cell_step(cfg, sh, mesh, hyper, "cuda",
-                                       cache_update=cache_update)
-        out, coll, _, _, peak = dryrun._run_measured(step, args, "cuda")
-        arg_bytes = dryrun._arg_bytes(cfg, sh, args)
-        del out, step, args
-    rec = {"cell": f"{arch}/{shape}/{'multi' if multi_pod else 'single'}/"
-                   f"{nm}/{cache_update}",
-           "arg_bytes": arg_bytes, "peak_gib": peak / 2**30,
-           "total": coll.total_bytes,
-           "by_kind": {k: v for k, v in coll.by_kind.items() if v},
-           "wall_s": time.time() - t0,
-           "card": torch.cuda.get_device_name(0)}
-    print("CELL", json.dumps(rec), flush=True)
+    rec, coll = dryrun._measure_cell(cfg, sh, multi_pod, hyper, "cuda",
+                                     cache_update=cache_update)
+    ma = rec["memory_analysis"]
+    print("CELL", json.dumps({
+        "cell": f"{arch}/{shape}/{rec['mesh']}/{nm}/{cache_update}",
+        "arg_bytes": ma["argument_bytes"],
+        "alias_bytes": ma["alias_bytes"],
+        "per_device_bytes": ma["per_device_bytes"],
+        "total": rec["collectives"]["total_bytes_per_device"],
+        "by_kind": rec["collectives"]["by_kind"],
+        "wall_s": time.time() - t0,
+        "card": torch.cuda.get_device_name(0)}), flush=True)
     for row in hillclimb.top_collectives(coll, top):
         print("   ", row, flush=True)
     pod = defaultdict(int)
